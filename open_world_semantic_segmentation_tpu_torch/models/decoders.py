@@ -1,0 +1,111 @@
+"""The PPM deep-supervision embedding decoder (the DML head), NCHW inside.
+
+Parity target: the reference's ``PPMDeepsup_embedding`` (anomaly
+models.py:586-687) as the JAX package's ``models/decoders.py`` computes it:
+
+- at inference (``seg_size`` given) there is no softmax: the decoder returns
+  ``scores = resize(distance(emb))`` and ``ft = resize(emb)``, where ``emb``
+  is the K-dim output of ``conv_last`` and the distance head is the fixed
+  one-hot-center rule of ``ops/distance.py``;
+- the fuse conv runs concat-free (``ops/ppm_fuse.py``), the JAX default;
+- the deep-supervision branch (the JAX package's ``_DeepsupBranch``) holds
+  its parameters, so checkpoints load, but only training runs it, and the
+  training forward (no ``seg_size``) is not ported yet.
+
+Modules keep the reference's key names (``ppm.0.1.weight``,
+``conv_last.0.weight``, ``conv_last.4.bias``, ``cbr_deepsup.0.weight``,
+``conv_last_deepsup.weight``). Outputs are NHWC, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from .layers import BNConfig, Conv, ConvBN
+from ..ops.distance import one_hot_center_logits
+from ..ops.ppm_fuse import ppm_fuse_conv
+from ..ops.resize import bilinear_resize
+
+PPM_CHANNELS = 512
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+class _PPMTrunk(nn.ModuleList):
+    """Pyramid pooling branches: (adaptive pool -> 1x1 conv-bn-relu) per
+    scale. Returns the pooled maps at their pyramid resolutions (k x k);
+    the upsample + concat is left to the consumer."""
+
+    def __init__(self, fc_dim: int, pool_scales, bn: BNConfig):
+        super().__init__(
+            nn.Sequential(nn.AdaptiveAvgPool2d(scale),
+                          *ConvBN(fc_dim, PPM_CHANNELS, 1, bn=bn))
+            for scale in pool_scales)
+
+    def forward(self, conv5):
+        return [branch(conv5) for branch in self]
+
+
+def _ppm_concat(conv5, pools):
+    """Materialised reference dataflow: cat(conv5, upsampled pools), NCHW;
+    the reference the concat-free fuse is tested against."""
+    size = conv5.shape[-2:]
+    return torch.cat(
+        [conv5] + [bilinear_resize(p, size, channel_last=False)
+                   for p in pools], dim=1)
+
+
+class _PPMHead(nn.Sequential):
+    """conv_last: 3x3 conv-bn-relu (the fuse) -> dropout(0.1) -> 1x1 to
+    num_class. The fuse conv's weight is applied concat-free."""
+
+    def __init__(self, in_channels: int, num_class: int, bn: BNConfig):
+        super().__init__(
+            nn.Conv2d(in_channels, PPM_CHANNELS, 3, padding=1, bias=False),
+            bn.make(PPM_CHANNELS),
+            nn.ReLU(inplace=True),
+            nn.Dropout2d(0.1),
+            Conv(PPM_CHANNELS, num_class))
+
+    def forward(self, conv5, pools):
+        fuse, bn, relu, drop, out = self
+        y = ppm_fuse_conv(_nhwc(conv5), [_nhwc(p) for p in pools],
+                          fuse.weight)
+        y = relu(bn(y.to(conv5.dtype).permute(0, 3, 1, 2)))
+        return out(drop(y))
+
+
+class PPMDeepsupEmbedding(nn.Module):
+    """PPMDeepsup trunk whose K-dim conv output is read as a pixel
+    embedding; logits are -||x - m*e_k||^2 against fixed one-hot centers
+    (magnitude 3)."""
+
+    def __init__(self, num_class: int = 13, fc_dim: int = 4096,
+                 pool_scales=(1, 2, 3, 6), magnitude: float = 3.0,
+                 bn: BNConfig = BNConfig()):
+        super().__init__()
+        self.magnitude = magnitude
+        self.ppm = _PPMTrunk(fc_dim, pool_scales, bn)
+        self.conv_last = _PPMHead(fc_dim + len(pool_scales) * PPM_CHANNELS,
+                                  num_class, bn)
+        # deep supervision off conv4: parameters only until training lands
+        self.cbr_deepsup = ConvBN(fc_dim // 2, fc_dim // 4, 3, padding=1,
+                                  bn=bn)
+        self.dropout_deepsup = nn.Dropout2d(0.1)
+        self.conv_last_deepsup = Conv(fc_dim // 4, num_class)
+
+    def forward(self, conv_out, seg_size=None):
+        if seg_size is None:
+            raise NotImplementedError(
+                "the training forward (deep supervision, no seg_size) is not "
+                "ported yet; ROADMAP.md queues it")
+        conv5 = conv_out[-1]
+        emb = _nhwc(self.conv_last(conv5, self.ppm(conv5)))
+        scores = one_hot_center_logits(emb, self.magnitude)
+        # ``ft`` is the pre-distance K-dim map: the 4096-d concat never
+        # materialises on the eval path
+        return {"scores": bilinear_resize(scores, seg_size),
+                "ft": bilinear_resize(emb, seg_size)}

@@ -1,0 +1,154 @@
+"""ResNet backbones with declarative dilation, NCHW.
+
+Covers the CSAIL "deep stem" variant (three 3x3 convs, 128 channels into
+layer1) that the anomaly stack uses, with the dilation surgery of its
+``ResnetDilated``; the torchvision 7x7 stem is not ported yet. Dilation
+follows from ``output_stride`` at construction: when a stage's stride
+becomes 1, its first block keeps the previous dilation and later blocks use
+the new one, which is what both reference mechanisms produce.
+
+Attribute names are the reference's (``conv1``, ``bn1``, ``layer3.0.conv2``,
+``layer3.0.downsample.0``, ...), so its ``encoder_epoch_*.pth`` loads with
+``load_state_dict``. The forward returns the four stage outputs.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from .layers import BNConfig, ConvBN
+from ..ops.pool import max_pool_3x3_s2_p1
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 dilation: int = 1, first_dilation: int = 1,
+                 downsample: bool = False, bn: BNConfig = BNConfig(),
+                 groups: int = 1, base_width: int = 64):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride,
+                               padding=first_dilation,
+                               dilation=first_dilation, bias=False)
+        self.bn1 = bn.make(planes)
+        self.relu = nn.ReLU(inplace=True)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=dilation,
+                               dilation=dilation, bias=False)
+        self.bn2 = bn.make(planes)
+        self.downsample = (ConvBN(inplanes, planes, 1, stride, relu=False,
+                                  bn=bn) if downsample else None)
+
+    def forward(self, x):
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return self.relu(out + residual)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 dilation: int = 1, first_dilation: int = 1,
+                 downsample: bool = False, bn: BNConfig = BNConfig(),
+                 groups: int = 1, base_width: int = 64):
+        super().__init__()
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = nn.Conv2d(inplanes, width, 1, bias=False)
+        self.bn1 = bn.make(width)
+        # the 3x3 carries stride and dilation (torch Bottleneck layout)
+        self.conv2 = nn.Conv2d(width, width, 3, stride,
+                               padding=first_dilation,
+                               dilation=first_dilation, groups=groups,
+                               bias=False)
+        self.bn2 = bn.make(width)
+        self.conv3 = nn.Conv2d(width, planes * 4, 1, bias=False)
+        self.bn3 = bn.make(planes * 4)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = (ConvBN(inplanes, planes * 4, 1, stride,
+                                  relu=False, bn=bn) if downsample else None)
+
+    def forward(self, x):
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return self.relu(out + residual)
+
+
+def _stage_plan(output_stride: int) -> Sequence[Tuple[int, int]]:
+    """(stride, dilation) per stage for layers 1-4.
+
+    output_stride 32: strides (1,2,2,2) dilations (1,1,1,1)
+    output_stride 16: strides (1,2,2,1) dilations (1,1,1,2)
+    output_stride 8:  strides (1,2,1,1) dilations (1,1,2,4)
+    """
+    if output_stride == 32:
+        return [(1, 1), (2, 1), (2, 1), (2, 1)]
+    if output_stride == 16:
+        return [(1, 1), (2, 1), (2, 1), (1, 2)]
+    if output_stride == 8:
+        return [(1, 1), (2, 1), (1, 2), (1, 4)]
+    raise ValueError(f"unsupported output_stride {output_stride}")
+
+
+class ResNet(nn.Module):
+    """Feature-pyramid ResNet returning [c1out..c4out] (NCHW)."""
+
+    def __init__(self, block=Bottleneck, layers=(3, 4, 6, 3),
+                 stem: str = "deep", output_stride: int = 8,
+                 bn: BNConfig = BNConfig(), groups: int = 1,
+                 base_width: int = 64, planes=(64, 128, 256, 512)):
+        super().__init__()
+        if stem != "deep":
+            raise NotImplementedError(
+                f"stem {stem!r} is not ported yet (ROADMAP.md queues it)")
+        self.conv1 = nn.Conv2d(3, 64, 3, 2, padding=1, bias=False)
+        self.bn1 = bn.make(64)
+        self.conv2 = nn.Conv2d(64, 64, 3, padding=1, bias=False)
+        self.bn2 = bn.make(64)
+        self.conv3 = nn.Conv2d(64, 128, 3, padding=1, bias=False)
+        self.bn3 = bn.make(128)
+        inplanes = 128
+        self.relu = nn.ReLU(inplace=True)
+
+        prev_dilation = 1
+        for stage, (nblocks, (stride, dilation)) in enumerate(
+                zip(layers, _stage_plan(output_stride))):
+            out_ch = planes[stage] * block.expansion
+            blocks = []
+            for b in range(nblocks):
+                is_first = b == 0
+                blocks.append(block(
+                    inplanes, planes[stage],
+                    stride=stride if is_first else 1,
+                    dilation=dilation,
+                    # first block of a dilated stage keeps the previous
+                    # dilation (torchvision previous_dilation; CSAIL
+                    # _nostride_dilate dilate//2 on the strided conv)
+                    first_dilation=prev_dilation if is_first else dilation,
+                    downsample=is_first and (stride != 1
+                                             or inplanes != out_ch),
+                    bn=bn, groups=groups, base_width=base_width))
+                inplanes = out_ch
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
+            prev_dilation = dilation
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = self.relu(self.bn1(self.conv1(x)))
+        x = self.relu(self.bn2(self.conv2(x)))
+        x = self.relu(self.bn3(self.conv3(x)))
+        x = max_pool_3x3_s2_p1(x, channel_last=False)
+        outs = []
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            x = layer(x)
+            outs.append(x)
+        return outs
+
+
+def resnet50(**kw):
+    return ResNet(block=Bottleneck, layers=(3, 4, 6, 3), **kw)

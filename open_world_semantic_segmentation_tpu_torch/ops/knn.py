@@ -1,0 +1,107 @@
+"""Neighbourhood cosine-similarity map (the ``knn`` OOD score).
+
+Counterpart of the JAX package's ``ops/pallas_knn.py``. For (H, W, C)
+features, each pixel L2-normalised with ``max(||f||, eps)``:
+
+    out[p] = sum_{dh, dw in [1, k)} cos(f_p, f_{p + (dh, dw)})
+                                   + cos(f_p, f_{p - (dh, dw)})
+
+with out-of-image neighbours counting as zero (k = ``neighbor_size``).
+
+- ``knn_cosine_plain``: plain PyTorch, the arithmetic repeated with shifted
+  slices (one pass over the map per shift and direction).
+- ``knn_cosine``: the wrapper. A CPU tensor goes to the plain version; a
+  CUDA tensor goes to the hand-written kernel of ``csrc/knn_cosine.cu`` or
+  raises. ``knn_cosine.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_SOURCE = "knn_cosine.cu"
+# per-block shared memory an H100 grants with the opt-in attribute
+_MAX_SMEM = 232448
+
+
+def normalize_features(ft: torch.Tensor, eps: float = 1e-8):
+    """(H, W, C) -> float32 features divided by ``max(||f||, eps)``."""
+    ft = ft.float()
+    norm = torch.sqrt((ft * ft).sum(-1, keepdim=True))
+    return ft / torch.clamp(norm, min=eps)
+
+
+def knn_cosine_plain(ft: torch.Tensor, neighbor_size: int = 9,
+                     eps: float = 1e-8):
+    """(H, W, C) float -> (H, W) float32 cosine-sum map, in plain PyTorch."""
+    h, w, _ = ft.shape
+    fn = normalize_features(ft, eps)
+    out = torch.zeros((h, w), dtype=torch.float32, device=ft.device)
+    for dh in range(1, neighbor_size):
+        for dw in range(1, neighbor_size):
+            if dh >= h or dw >= w:
+                continue
+            dot = (fn[: h - dh, : w - dw] * fn[dh:, dw:]).sum(-1)
+            out[: h - dh, : w - dw] += dot   # neighbour p + (dh, dw)
+            out[dh:, dw:] += dot             # neighbour p - (dh, dw)
+    return out
+
+
+def _library():
+    from ._build import load
+
+    lib = load(_SOURCE)
+    lib.knn_cosine_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_void_p]
+    lib.knn_cosine_f32.restype = ctypes.c_int
+    lib.knn_cosine_max_channels.argtypes = []
+    lib.knn_cosine_max_channels.restype = ctypes.c_int
+    lib.knn_cosine_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.knn_cosine_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+def knn_cosine(ft: torch.Tensor, neighbor_size: int = 9, eps: float = 1e-8):
+    """(H, W, C) float -> (H, W) float32 cosine-sum map.
+
+    CPU tensors take ``knn_cosine_plain``; CUDA tensors launch the kernel
+    (normalisation stays a plain PyTorch op before it).
+    """
+    if ft.dim() != 3:
+        raise ValueError(f"knn_cosine takes (H, W, C) features, got shape "
+                         f"{tuple(ft.shape)}")
+    if not ft.is_floating_point():
+        raise TypeError(f"knn_cosine takes float features, got {ft.dtype}")
+    if neighbor_size < 1:
+        raise ValueError(f"neighbor_size must be >= 1, got {neighbor_size}")
+    if ft.device.type == "cpu":
+        return knn_cosine_plain(ft, neighbor_size, eps)
+    if ft.device.type != "cuda":
+        raise RuntimeError(f"knn_cosine runs on cpu or cuda, not "
+                           f"{ft.device}")
+    h, w, c = ft.shape
+    halo = neighbor_size - 1
+    lib = _library()
+    if c > lib.knn_cosine_max_channels():
+        raise ValueError(f"knn_cosine kernel takes at most "
+                         f"{lib.knn_cosine_max_channels()} channels, got {c}")
+    if lib.knn_cosine_smem_bytes(c, halo) > _MAX_SMEM:
+        raise ValueError(f"knn_cosine window for C={c}, neighbor_size="
+                         f"{neighbor_size} exceeds shared memory")
+    with torch.cuda.device(ft.device):
+        fn = normalize_features(ft, eps).contiguous()
+        out = torch.empty((h, w), dtype=torch.float32, device=ft.device)
+        stream = torch.cuda.current_stream(ft.device).cuda_stream
+        err = lib.knn_cosine_f32(fn.data_ptr(), out.data_ptr(), h, w, c,
+                                 halo, stream)
+    if err != 0:
+        raise RuntimeError(f"knn_cosine kernel launch failed: CUDA error "
+                           f"{err}")
+    knn_cosine.launches += 1
+    return out
+
+
+knn_cosine.launches = 0

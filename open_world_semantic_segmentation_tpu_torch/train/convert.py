@@ -1,0 +1,93 @@
+"""JAX (flax) variables -> the port's torch state dicts.
+
+The inverse of the JAX package's ``train/convert.py``
+(``convert_segmentation_model``): the flax ``{"params", "batch_stats"}``
+tree of a ``SegmentationModel``, given as numpy arrays, becomes the encoder
+and decoder state dicts of the port, whose keys are the reference's. Conv
+kernels go HWIO -> OIHW; BN ``scale/bias`` (params) and ``mean/var``
+(batch_stats) go to ``weight/bias/running_mean/running_var``.
+
+The reference's own ``encoder_epoch_*.pth`` / ``decoder_epoch_*.pth`` need
+no conversion: they load into the port with ``load_state_dict``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+# flax module path -> torch module prefix
+_ENCODER_RULES = (
+    (r"stem(\d)/conv", r"conv\1"),
+    (r"stem(\d)/bn", r"bn\1"),
+    (r"layer(\d)_(\d+)/c(\d)/conv", r"layer\1.\2.conv\3"),
+    (r"layer(\d)_(\d+)/c(\d)/bn", r"layer\1.\2.bn\3"),
+    (r"layer(\d)_(\d+)/down/conv", r"layer\1.\2.downsample.0"),
+    (r"layer(\d)_(\d+)/down/bn", r"layer\1.\2.downsample.1"),
+)
+_DECODER_RULES = (
+    (r"ppm/ppm(\d)/conv", r"ppm.\1.1"),
+    (r"ppm/ppm(\d)/bn", r"ppm.\1.2"),
+    (r"conv_last/fuse/conv", "conv_last.0"),
+    (r"conv_last/fuse/bn", "conv_last.1"),
+    (r"conv_last/out/conv", "conv_last.4"),
+    (r"deepsup/cbr_deepsup/conv", "cbr_deepsup.0"),
+    (r"deepsup/cbr_deepsup/bn", "cbr_deepsup.1"),
+    (r"deepsup/conv_last_deepsup/conv", "conv_last_deepsup"),
+)
+_LEAVES = {
+    ("params", "kernel"): "weight",
+    ("params", "bias"): "bias",
+    ("params", "scale"): "weight",
+    ("batch_stats", "mean"): "running_mean",
+    ("batch_stats", "var"): "running_var",
+}
+
+
+def _flatten(tree, prefix=""):
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if hasattr(value, "items"):
+            yield from _flatten(value, path)
+        else:
+            yield path, value
+
+
+def _torch_prefix(module_path: str, rules) -> str:
+    for pattern, repl in rules:
+        if re.fullmatch(pattern, module_path):
+            return re.sub(pattern, repl, module_path)
+    raise KeyError(f"no torch key for flax module {module_path!r}")
+
+
+def _convert_part(params, batch_stats, rules) -> Dict[str, torch.Tensor]:
+    state = {}
+    for collection, tree in (("params", params), ("batch_stats",
+                                                  batch_stats)):
+        for path, value in _flatten(tree):
+            module_path, leaf = path.rsplit("/", 1)
+            prefix = _torch_prefix(module_path, rules)
+            arr = np.asarray(value, dtype=np.float32)
+            if leaf == "kernel":
+                arr = np.transpose(arr, (3, 2, 0, 1))   # HWIO -> OIHW
+            state[f"{prefix}.{_LEAVES[(collection, leaf)]}"] = \
+                torch.tensor(arr)
+            if module_path.endswith("/bn") and leaf == "mean":
+                state[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+    return state
+
+
+def state_dict_from_jax(variables) -> Tuple[Dict[str, torch.Tensor],
+                                            Dict[str, torch.Tensor]]:
+    """flax variables of a SegmentationModel -> (encoder, decoder) torch
+    state dicts for ``model.encoder`` / ``model.decoder``."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    enc = _convert_part(params["encoder"], stats.get("encoder", {}),
+                        _ENCODER_RULES)
+    dec = _convert_part(params["decoder"], stats.get("decoder", {}),
+                        _DECODER_RULES)
+    return enc, dec

@@ -1,0 +1,58 @@
+"""The port stands alone: importing every module of
+``open_world_semantic_segmentation_tpu_torch`` pulls in neither JAX nor the
+JAX package, and its entry points refuse CUDA where there is no GPU instead
+of falling back to the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from open_world_semantic_segmentation_tpu_torch.cli import _common
+from open_world_semantic_segmentation_tpu_torch.cli import eval_ood
+from open_world_semantic_segmentation_tpu_torch.core.config import (
+    load_config)
+from open_world_semantic_segmentation_tpu_torch.core.device import (
+    resolve_device)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import open_world_semantic_segmentation_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__,
+                                               port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "flax", "open_world_semantic_segmentation_tpu")
+             or m.startswith(("jax.", "flax.",
+                              "open_world_semantic_segmentation_tpu.")))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(maxsplit=1)
+    assert int(n) >= 25 and bad.strip() == "[]", out.stdout
+
+
+def test_entry_points_refuse_cuda_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: CUDA is a valid choice here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    cfg = load_config("configs/test_ood_street.yaml")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _common.build_anomaly_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_ood.main(cfg)
+    assert resolve_device("cpu") == torch.device("cpu")
