@@ -7,18 +7,29 @@ StreetHazards open-set eval, end to end.
 Phases (any failure exits non-zero and prints no result):
 
 1. the card's name and power limit, as nvidia-smi reports them;
-2. build every kernel of the path from ``csrc/`` with nvcc (timed set-up);
+2. build every kernel of the path from ``csrc/`` with nvcc, one nvcc per
+   source, all started together (timed set-up);
 3. kernel phase: each kernel's wrapper against its plain PyTorch version on
-   the card at the eval path's shapes (float32, atol 2e-5), then timed with
-   CUDA events beside its plain version and its bound;
+   the card at the eval path's shapes, then timed with CUDA events beside
+   its plain version, its bound and, where one exists, a library yardstick:
+   knn_cosine in float32 (atol 2e-5); fused_bottleneck at the seven block
+   geometries of resnet50dilated at the largest pyramid level and at
+   ragged small shapes, in bf16 (tolerance 5e-2) and float32 with TF32 off
+   (1e-4), timed in bf16 beside the cuDNN chain of the unfused block;
 4. slice phase: a synthetic StreetHazards tree of 720x1280 images, a
    full-width resnet50dilated + ppm_deepsup_embedding with seeded random
-   weights, ``cli.eval_ood.main`` on cuda in bf16 with OOD.ood dissum and
-   then knn; launch counts are zeroed just before each run and read just
-   after; every metric must be finite; each run's wall time per image is
-   split into the device batch, the host metric sweep and loader waits;
+   weights, ``cli.eval_ood.main`` on cuda in bf16: OOD.ood dissum, knn,
+   dissum with ``fused_blocks=True`` and dissum with
+   ``device_metrics=True``; launch counts are zeroed just before each run
+   and read just after (knn_cosine once per image in the knn run,
+   fused_bottleneck once per routed block per pyramid level per batch in
+   the fused run, neither elsewhere); every metric must be finite; the
+   device metrics must lie within 2e-5 of the host sweep's; each run's wall
+   time per image is split into the device batch, the metric sweep and
+   loader waits;
 5. device check: one small image through the full-width model in fp32 with
-   TF32 off, on cuda and on the CPU; the score maps must agree.
+   TF32 off, on cuda and on the CPU, unfused and fused; the score maps must
+   agree; and the fused route against the unfused one on cuda in bf16.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.
@@ -37,10 +48,48 @@ import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12        # bf16 tensor cores
 PEAK_BYTES = 3.35e12            # HBM3
 KNN_ATOL = 2e-5                 # as tests/test_pallas.py holds the TPU kernel
+# fused_bottleneck vs its plain version, as tests/test_pallas_block.py
+# holds the TPU kernel: float32 (TF32 off) differs by summation order only;
+# bf16 rounds y1, y2 and the output to 8 bits of mantissa, and a sum taken
+# in another order can put a value on the other side of a rounding step
+BLOCK_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 DEVICE_CHECK_RTOL = 1e-3        # of the largest |score|: fp32, TF32 off,
 #                                 cuDNN vs CPU conv summation orders
+# the fused route in bf16: both routes round to bf16, at different places
+# (cuDNN after each conv, BN and residual add, with bf16 conv weights and
+# BN in float32; the kernel after y1, y2 and the block, with the BN scale
+# folded into bf16 weights), over 15 blocks of a random-weight network. How
+# far bf16 carries that network from float32 is measured on the same
+# input, as the unfused route's distance from the fp32 CPU forward and its
+# argmax agreement with it. The fused route may be twice as far (plus the
+# fp32 allowance above) and agree with the argmax 0.05 less often.
+BF16_ROUTE_FACTOR = 2.0
+BF16_ROUTE_ARGMAX_SLACK = 0.05
+METRIC_ATOL = 2e-5              # device vs host sweep (test_metrics_device)
+# resnet50dilated OS8 bottlenecks at the largest pyramid level (568x1000
+# input): (name, h, w, Cin, Cmid, Cout, dilation, downsample, blocks of
+# this geometry in one forward); layer2.0 has stride 2 and is not fused
+BLOCK_GEOMETRIES = (
+    ("layer1.0", 142, 250, 128, 64, 256, 1, True, 1),
+    ("layer1.1-2", 142, 250, 256, 64, 256, 1, False, 2),
+    ("layer2.1-3", 71, 125, 512, 128, 512, 1, False, 3),
+    ("layer3.0", 71, 125, 512, 256, 1024, 1, True, 1),
+    ("layer3.1-5", 71, 125, 1024, 256, 1024, 2, False, 5),
+    ("layer4.0", 71, 125, 1024, 512, 2048, 2, True, 1),
+    ("layer4.1-2", 71, 125, 2048, 512, 2048, 4, False, 2),
+)
+# ragged small shapes: odd sizes, maps smaller than a tile or the halo
+# (n, h, w, Cin, Cmid, Cout, dilation, downsample)
+BLOCK_RAGGED = (
+    (2, 9, 13, 128, 64, 256, 1, True),
+    (1, 5, 7, 512, 128, 512, 1, False),
+    (2, 11, 3, 1024, 256, 1024, 2, False),
+    (1, 6, 11, 2048, 512, 2048, 4, False),
+    (1, 3, 3, 1024, 512, 2048, 2, True),
+)
 N_IMAGES = 16
 FULL_SIZE = (720, 1280)
 SEED = 0
@@ -91,16 +140,39 @@ def knn_cosine_bound_ms(h, w, c):
     return ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+def fused_bottleneck_bound_ms(h, w, cin, cmid, cout, down, itemsize=2,
+                              peak_flops=PEAK_BF16_FLOPS):
+    """(operations ms, bytes ms): the least time for one fused block on an
+    (h, w) map, from its minimal work: the four products once (2 flops a
+    multiply-add), x read once, the output written once, the weights (in
+    x's type) and float32 biases read once."""
+    macs = cin * cmid + 9 * cmid * cmid + cmid * cout + (cin * cout
+                                                         if down else 0)
+    ops = 2 * h * w * macs
+    nbiases = 2 * cmid + cout + (cout if down else 0)
+    nbytes = itemsize * (h * w * (cin + cout) + macs) + 4 * nbiases
+    return ops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
 # ---------------------------------------------------------------------------
+def build_kernels():
+    """Build every kernel of the path, one nvcc per source, all at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from open_world_semantic_segmentation_tpu_torch.ops import _build
+
+    sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    tic = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.build, sources))
+    log(f"build: {', '.join(sources)} in {time.perf_counter() - tic:.1f} s")
+
+
 def kernel_phase():
     """knn_cosine (the CUDA kernel) vs knn_cosine_plain on the card."""
     import torch
 
-    from open_world_semantic_segmentation_tpu_torch.ops import _build, knn
-
-    tic = time.perf_counter()
-    _build.build("knn_cosine.cu")
-    log(f"build: knn_cosine.cu in {time.perf_counter() - tic:.1f} s")
+    from open_world_semantic_segmentation_tpu_torch.ops import knn
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     max_err = 0.0
@@ -151,6 +223,151 @@ def kernel_phase():
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,   # no single PyTorch call computes this map
         "shape": [h, w, c],
+    }
+
+
+def _block_inputs(gen, n, h, w, cin, cmid, cout, down, dtype):
+    """NHWC input of unit scale and folded weights of std sqrt(1/fan_in),
+    so each product keeps the scale of a trained network's activations;
+    biases small."""
+    import torch
+
+    def mk(*shape, fan_in=1):
+        t = torch.randn(shape, generator=gen, device="cuda")
+        return t / fan_in ** 0.5
+
+    ws = [mk(cin, cmid, fan_in=cin), 0.1 * mk(cmid),
+          mk(3, 3, cmid, cmid, fan_in=9 * cmid), 0.1 * mk(cmid),
+          mk(cmid, cout, fan_in=cmid), 0.1 * mk(cout)]
+    ws += ([mk(cin, cout, fan_in=cin), 0.1 * mk(cout)] if down
+           else [None, None])
+    # the kernel's operand types: weights in x's dtype, biases float32
+    ws = [None if t is None else t.to(dtype) if t.dim() > 1 else t
+          for t in ws]
+    return torch.relu(mk(n, h, w, cin)).to(dtype), ws
+
+
+def _cudnn_chain(x, ws, d):
+    """The unfused block as cuDNN runs it: conv1x1, conv3x3_d, conv1x1, the
+    downsample, add, relu, on channels_last bf16 (``tools/bench_block.py``'s
+    yardstick). Only timed here: the port never calls it on the route."""
+    import torch
+    import torch.nn.functional as F
+
+    w1, b1, w2, b2, w3, b3, wd, bd = ws
+    cl = torch.channels_last
+    xc = x.permute(0, 3, 1, 2)                   # NHWC -> channels_last NCHW
+    w1c = w1.t()[:, :, None, None].contiguous(memory_format=cl)
+    w2c = w2.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    w3c = w3.t()[:, :, None, None].contiguous(memory_format=cl)
+    bias = [b.to(x.dtype) for b in (b1, b2, b3)]
+    args = None
+    if wd is not None:
+        args = (wd.t()[:, :, None, None].contiguous(memory_format=cl),
+                bd.to(x.dtype))
+
+    def run():
+        y = F.relu(F.conv2d(xc, w1c, bias[0]))
+        y = F.relu(F.conv2d(y, w2c, bias[1], padding=d, dilation=d))
+        y = F.conv2d(y, w3c, bias[2])
+        skip = xc if args is None else F.conv2d(xc, *args)
+        return F.relu(y + skip)
+
+    return run
+
+
+def fused_kernel_phase():
+    """fused_bottleneck (the CUDA kernel) vs fused_bottleneck_plain on the
+    card at the eval geometries and ragged shapes, bf16 and float32."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.ops import fused_block
+    from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
+        fused_bottleneck, fused_bottleneck_plain)
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shapes = [(1, *g[1:8]) for g in BLOCK_GEOMETRIES] + list(BLOCK_RAGGED)
+    max_err = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        tol = BLOCK_TOL[name]
+        for n, h, w, cin, cmid, cout, d, down in shapes:
+            x, ws = _block_inputs(gen, n, h, w, cin, cmid, cout, down, dtype)
+            got = fused_bottleneck(x, *ws, dilation=d).float()
+            torch.cuda.synchronize()
+            want = fused_bottleneck_plain(x, *ws, dilation=d).float()
+            err = (got - want).abs()
+            bad = (err > tol + tol * want.abs()).sum().item()
+            log(f"fused_bottleneck {name} {(n, h, w, cin, cmid, cout)} "
+                f"d {d} down {down}: max |err| {err.max().item():.3g} "
+                f"(max |plain| {want.abs().max().item():.3g}), {bad} over "
+                f"rtol = atol = {tol}")
+            if bad or not torch.isfinite(got).all():
+                raise AssertionError(f"fused_bottleneck disagrees at "
+                                     f"{(n, h, w, cin, cmid, cout, d)}")
+            max_err[name] = max(max_err.get(name, 0.0),
+                                err.max().item())
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+
+    # timing in bf16 at the eval geometries, one image each
+    lib = fused_block._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    per_geometry = []
+    totals = dict.fromkeys(("ms", "kernel_ms", "plain_ms", "library_ms",
+                            "ops_ms", "bytes_ms", "bound_ms"), 0.0)
+    for name, h, w, cin, cmid, cout, d, down, count in BLOCK_GEOMETRIES:
+        x, ws = _block_inputs(gen, 1, h, w, cin, cmid, cout, down,
+                              torch.bfloat16)
+        out = torch.empty((1, h, w, cout), dtype=x.dtype, device="cuda")
+        ptrs = [None if t is None else t.data_ptr() for t in (x, *ws, out)]
+
+        def kernel():
+            if lib.fused_bottleneck(1, *ptrs, 1, h, w, cin, cmid, cout, d,
+                                    stream) != 0:
+                raise RuntimeError("fused_bottleneck launch failed")
+
+        row = {"block": name, "shape": [h, w, cin, cmid, cout, d],
+               "downsample": down, "per_forward": count,
+               "ms": cuda_time_ms(
+                   lambda: fused_bottleneck(x, *ws, dilation=d)),
+               "kernel_ms": cuda_time_ms(kernel),
+               "plain_ms": cuda_time_ms(
+                   lambda: fused_bottleneck_plain(x, *ws, dilation=d),
+                   iters=5),
+               "library_ms": cuda_time_ms(_cudnn_chain(x, ws, d))}
+        t_ops, t_bytes = fused_bottleneck_bound_ms(h, w, cin, cmid, cout,
+                                                   down)
+        row.update(ops_ms=t_ops, bytes_ms=t_bytes,
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        log(f"fused_bottleneck {name}: " + json.dumps(row))
+        per_geometry.append(row)
+        for key in totals:
+            totals[key] += count * row[key]
+    return {
+        "name": "fused_bottleneck",
+        "route": "cuda",
+        "source": "open_world_semantic_segmentation_tpu_torch/csrc/"
+                  "fused_bottleneck.cu",
+        "replaces": "open_world_semantic_segmentation_tpu/ops/"
+                    "pallas_block.py:211",
+        "launches": None,                       # filled from the main path
+        "max_abs_err": max_err["bfloat16"],
+        "max_abs_err_float32": max_err["float32"],
+        # sums over the 15 fused blocks of one forward at 568x1000, bf16
+        "ms": totals["ms"],
+        "kernel_ms": totals["kernel_ms"],
+        "plain_ms": totals["plain_ms"],
+        "bound_ms": totals["bound_ms"],
+        "bound_by": ("operations" if totals["ops_ms"] >= totals["bytes_ms"]
+                     else "bytes"),
+        "library_ms": totals["library_ms"],     # the cuDNN chain
+        "per_geometry": per_geometry,
     }
 
 
@@ -236,6 +453,8 @@ def slice_phase(root):
     from open_world_semantic_segmentation_tpu_torch.cli import eval_ood
     from open_world_semantic_segmentation_tpu_torch.core.config import (
         load_config)
+    from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
+        fused_bottleneck)
     from open_world_semantic_segmentation_tpu_torch.ops.knn import knn_cosine
 
     odgt = write_street_tree(root, N_IMAGES, FULL_SIZE, SEED)
@@ -243,6 +462,7 @@ def slice_phase(root):
         "DATASET.root_dataset", root, "DATASET.list_val", odgt])
     enc, dec = write_random_checkpoint(cfg, root, SEED)
     cfg.MODEL.weights_encoder, cfg.MODEL.weights_decoder = enc, dec
+    routed = fused_route_verdicts(cfg)
 
     # warm-up (CUDA context, cuDNN heuristics, lazy module loading): the
     # first images of a process otherwise take seconds, not milliseconds
@@ -250,43 +470,86 @@ def slice_phase(root):
     eval_ood.main(cfg, torch.bfloat16, max_images=2, batch_images=2,
                   device=DEVICE)
 
+    batch = 2
+    n_levels = len(cfg.DATASET.imgSizes)
+    n_batches = -(-N_IMAGES // batch)
+    # run name -> (OOD.ood, eval_ood.main keywords, expected launches)
+    runs = {
+        "dissum": ("dissum", {}, {"knn_cosine": 0, "fused_bottleneck": 0}),
+        "knn": ("knn", {}, {"knn_cosine": N_IMAGES, "fused_bottleneck": 0}),
+        "dissum_fused": ("dissum", {"fused_blocks": True},
+                         {"knn_cosine": 0,
+                          "fused_bottleneck": n_batches * n_levels * routed}),
+        "dissum_device_metrics": ("dissum", {"device_metrics": True},
+                                  {"knn_cosine": 0, "fused_bottleneck": 0}),
+    }
+    kernels = {"knn_cosine": knn_cosine, "fused_bottleneck": fused_bottleneck}
     summaries = {}
     launches = {}
-    for method in ("dissum", "knn"):
+    for run, (method, kw, want) in runs.items():
         cfg.OOD.ood = method
-        knn_cosine.launches = 0
-        result = eval_ood.main(cfg, torch.bfloat16, batch_images=2,
-                               device=DEVICE)
-        launches[method] = knn_cosine.launches
+        for fn in kernels.values():
+            fn.launches = 0
+        result = eval_ood.main(cfg, torch.bfloat16, batch_images=batch,
+                               device=DEVICE, **kw)
+        launches[run] = {k: fn.launches for k, fn in kernels.items()}
         n = result["images"]
         summary = {k: result[k] for k in ("mean_iou", "accuracy", "auroc",
                                           "aupr", "fpr")}
-        # the loop's wall time per image, split: device batch, host metric
-        # sweep, waits on the prefetch thread, and the rest
+        # the loop's wall time per image, split: device batch, metric
+        # sweep (host, or the readback of the device metrics), waits on
+        # the prefetch thread, and the rest
         split = {"forward_s_per_img": result["inference_time"],
                  "metric_s_per_img": result["metric_time"],
                  "wait_s_per_img": result["wait_time"]}
         split["other_s_per_img"] = result["seconds"] / n - sum(split.values())
         summary.update(images=n, seconds=result["seconds"],
-                       imgs_per_s=n / result["seconds"], **split,
-                       knn_launches=launches[method])
-        log(f"eval_ood {method}: " + json.dumps(summary))
+                       imgs_per_s=n / result["seconds"], **split)
+        log(f"eval_ood {run}: " + json.dumps(summary) + " launches "
+            + json.dumps(launches[run]))
         if n != N_IMAGES:
-            raise AssertionError(f"{method}: evaluated {n} images")
+            raise AssertionError(f"{run}: evaluated {n} images")
         for key, value in summary.items():
             if value is None or not np.isfinite(value):
-                raise AssertionError(f"{method}: {key} = {value}")
-        summaries[method] = summary
-    if launches["knn"] != N_IMAGES or launches["dissum"] != 0:
-        raise AssertionError(f"knn_cosine launches {launches}, want "
-                             f"{N_IMAGES} on knn and 0 on dissum")
-    summaries["device_forward_ms_per_img"] = device_forward_ms(cfg)
-    log(f"device forward, 5 scales, batch 1: "
-        f"{summaries['device_forward_ms_per_img']:.2f} ms/img")
-    return summaries, launches["knn"], cfg
+                raise AssertionError(f"{run}: {key} = {value}")
+        if launches[run] != want:
+            raise AssertionError(f"{run}: launches {launches[run]}, want "
+                                 f"{want}")
+        summaries[run] = summary
+    log(f"forward s/img: default {summaries['dissum']['forward_s_per_img']}"
+        f", fused_blocks {summaries['dissum_fused']['forward_s_per_img']}")
+    for key in ("auroc", "aupr", "fpr"):
+        host = summaries["dissum"][key]
+        dev = summaries["dissum_device_metrics"][key]
+        log(f"device metrics {key}: {dev} vs host sweep {host}, "
+            f"|diff| {abs(dev - host):.3g}")
+        if not abs(dev - host) <= METRIC_ATOL:
+            raise AssertionError(f"device {key} {dev} vs host {host}")
+    for fused in (False, True):
+        ms = device_forward_ms(cfg, fused)
+        summaries[f"device_forward_ms_per_img{'_fused' if fused else ''}"] = ms
+        log(f"device forward, 5 scales, batch 1, fused_blocks {fused}: "
+            f"{ms:.2f} ms/img")
+    return summaries, launches, cfg
 
 
-def device_forward_ms(cfg):
+def fused_route_verdicts(cfg):
+    """Print which bottlenecks of the full-width model take the fused
+    route; return how many do."""
+    from open_world_semantic_segmentation_tpu_torch.cli._common import (
+        build_anomaly_model)
+    from open_world_semantic_segmentation_tpu_torch.models.resnet import (
+        Bottleneck)
+
+    model = build_anomaly_model(cfg, DEVICE, fused_blocks=True)
+    verdicts = {name: m.fused_tile is not None
+                for name, m in model.encoder.named_modules()
+                if isinstance(m, Bottleneck)}
+    log("fused route per block: " + json.dumps(verdicts))
+    return sum(verdicts.values())
+
+
+def device_forward_ms(cfg, fused_blocks=False):
     """CUDA-event time of the model's 5-scale forward of one image (bf16),
     without data movement, scoring or metrics."""
     import torch
@@ -298,7 +561,8 @@ def device_forward_ms(cfg):
     from open_world_semantic_segmentation_tpu_torch.openset.evaluator import (
         multi_scale_forward)
 
-    model = init_or_load_variables(cfg, build_anomaly_model(cfg, DEVICE))
+    model = init_or_load_variables(
+        cfg, build_anomaly_model(cfg, DEVICE, fused_blocks=fused_blocks))
     item = ValPipeline(cfg.DATASET.root_dataset, cfg.DATASET.list_val,
                        img_sizes=cfg.DATASET.imgSizes)[0]
     pyramid = [torch.from_numpy(p).to(DEVICE) for p in item["img_data"]]
@@ -314,8 +578,9 @@ def device_forward_ms(cfg):
 
 # ---------------------------------------------------------------------------
 def device_check(cfg):
-    """The full-width model of ``cfg`` in fp32, TF32 off, on cuda and on the
-    CPU, over a 64x96 crop of the first eval image."""
+    """The full-width model of ``cfg`` over a 64x96 crop of the first eval
+    image: in fp32, TF32 off, on cuda (unfused and fused) against the CPU;
+    then the fused route against the unfused one on cuda in bf16."""
     import torch
 
     from open_world_semantic_segmentation_tpu_torch.cli._common import (
@@ -328,25 +593,54 @@ def device_check(cfg):
     item = ValPipeline(cfg.DATASET.root_dataset, cfg.DATASET.list_val,
                        img_sizes=cfg.DATASET.imgSizes[:1])[0]
     x = np.ascontiguousarray(item["img_data"][0][:, :64, :96])
-    outs = {}
-    for device in (DEVICE, "cpu"):
-        model = init_or_load_variables(cfg, build_anomaly_model(cfg, device))
-        with torch.no_grad():
+
+    def forward(device, fused, dtype=torch.float32):
+        model = init_or_load_variables(
+            cfg, build_anomaly_model(cfg, device, fused_blocks=fused))
+        with torch.no_grad(), torch.autocast(
+                "cuda", dtype=dtype, enabled=dtype != torch.float32):
             out = model(torch.from_numpy(x).to(device), seg_size=(64, 96))
-        outs[device] = {k: v.float().cpu().numpy() for k, v in out.items()}
-    for key in ("scores", "ft"):
-        a, b = outs[DEVICE][key], outs["cpu"][key]
-        scale = float(np.abs(b).max())
-        err = float(np.abs(a - b).max())
-        log(f"device check {key}: max |cuda - cpu| {err:.3g} "
-            f"(max |cpu| {scale:.3g})")
-        if not err <= DEVICE_CHECK_RTOL * scale:
-            raise AssertionError(f"cuda and cpu {key} disagree: {err}")
-    same = float((outs[DEVICE]["scores"].argmax(-1)
-                  == outs["cpu"]["scores"].argmax(-1)).mean())
-    log(f"device check argmax agreement {same:.5f}")
-    if same < 0.99:
-        raise AssertionError(f"argmax agreement {same}")
+        return {k: v.float().cpu().numpy() for k, v in out.items()}
+
+    def compare(name, got, want, bounds, min_argmax):
+        """Largest |difference| per output within ``bounds`` and argmax
+        agreement of the scores at least ``min_argmax``; the agreement."""
+        for key in ("scores", "ft"):
+            err = float(np.abs(got[key] - want[key]).max())
+            log(f"device check {name} {key}: max |diff| {err:.4g} (max "
+                f"|reference| {np.abs(want[key]).max():.4g}, bound "
+                f"{bounds[key]:.4g})")
+            if not err <= bounds[key]:
+                raise AssertionError(f"{name} {key} disagree: {err}")
+        same = float((got["scores"].argmax(-1)
+                      == want["scores"].argmax(-1)).mean())
+        log(f"device check {name} argmax agreement {same:.5f} (bound "
+            f"{min_argmax:.5f})")
+        if same < min_argmax:
+            raise AssertionError(f"{name} argmax agreement {same}")
+        return same
+
+    cpu = forward("cpu", False)
+    fp32_bounds = {k: DEVICE_CHECK_RTOL * float(np.abs(v).max())
+                   for k, v in cpu.items()}
+    compare("fp32 cuda vs cpu", forward(DEVICE, False), cpu, fp32_bounds,
+            0.99)
+    compare("fp32 fused cuda vs cpu", forward(DEVICE, True), cpu,
+            fp32_bounds, 0.99)
+
+    torch.backends.cudnn.allow_tf32 = True
+    unfused = forward(DEVICE, False, torch.bfloat16)
+    fused = forward(DEVICE, True, torch.bfloat16)
+    noise = {k: float(np.abs(unfused[k] - cpu[k]).max()) for k in cpu}
+    agree_u = compare("bf16 unfused cuda vs fp32 cpu", unfused, cpu,
+                      dict.fromkeys(cpu, float("inf")), 0.0)
+    bounds = {k: BF16_ROUTE_FACTOR * noise[k] + fp32_bounds[k] for k in cpu}
+    agree_f = compare("bf16 fused cuda vs fp32 cpu", fused, cpu, bounds,
+                      agree_u - BF16_ROUTE_ARGMAX_SLACK)
+    # fused against unfused: within the sum of the two bounds above
+    compare("bf16 fused vs unfused cuda", fused, unfused,
+            {k: bounds[k] + noise[k] for k in cpu},
+            agree_f + agree_u - 1 - 1e-9)
 
 
 # ---------------------------------------------------------------------------
@@ -366,15 +660,21 @@ def main():
     gpu = gpu_name_and_power()
     log(gpu)
     tic = time.perf_counter()
-    kernel = kernel_phase()
-    log("kernel phase: " + json.dumps(kernel))
+    build_kernels()
+    kernels = [kernel_phase(), fused_kernel_phase()]
+    for kernel in kernels:
+        log("kernel phase: " + json.dumps(kernel))
     with tempfile.TemporaryDirectory() as root:
-        summaries, knn_launches, cfg = slice_phase(root)
+        summaries, launches, cfg = slice_phase(root)
         device_check(cfg)
-    kernel["launches"] = knn_launches
+    # launches on the main path: knn_cosine in the knn run, fused_bottleneck
+    # in the fused run (the runs that take each kernel's path)
+    kernels[0]["launches"] = launches["knn"]["knn_cosine"]
+    kernels[1]["launches"] = launches["dissum_fused"]["fused_bottleneck"]
     log(f"gpu: {gpu}; eval summaries: " + json.dumps(summaries))
     log(f"total {time.perf_counter() - tic:.1f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(gpu)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -39,15 +39,17 @@ def compute_dtype(args):
     return torch.float32
 
 
-def build_anomaly_model(cfg: Config, device=None):
+def build_anomaly_model(cfg: Config, device=None, fused_blocks: bool = False):
     """The config's encoder + decoder, in eval mode on ``device`` (channels
-    last on CUDA, the layout cuDNN's convs prefer)."""
+    last on CUDA, the layout cuDNN's convs prefer). ``fused_blocks`` routes
+    the backbone's eligible bottlenecks through the fused kernel."""
     from ..models.builder import ModelBuilder
 
     device = resolve_device(device)
     model = ModelBuilder.build_segmentation_model(
         cfg.MODEL.arch_encoder, cfg.MODEL.arch_decoder,
-        num_class=cfg.DATASET.num_class, fc_dim=cfg.MODEL.fc_dim)
+        num_class=cfg.DATASET.num_class, fc_dim=cfg.MODEL.fc_dim,
+        fused_blocks=fused_blocks)
     model = model.eval().to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)

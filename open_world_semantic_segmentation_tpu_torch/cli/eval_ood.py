@@ -6,7 +6,9 @@ Usage:
 
 Runs on CUDA unless ``--device cpu`` is given. Prints per-class IoU, mean
 IoU / accuracy / mean inference time, and the mean per-image AUROC / AUPR /
-FPR95 in the reference's format.
+FPR95 in the reference's format. ``--device-metrics`` computes AUROC / AUPR
+/ FPR95 on the device (``metrics/anom_device.py``); the host float64 sweep
+is the default.
 """
 
 from __future__ import annotations
@@ -28,12 +30,17 @@ from ..openset.evaluator import OODEvaluator
 
 
 def main(cfg, precision_dtype=torch.float32, max_images=None,
-         batch_images: int = 1, device=None, seed: int = 0):
+         batch_images: int = 1, device=None, seed: int = 0,
+         device_metrics: bool = False, fused_blocks: bool = False):
     """Evaluate ``cfg`` and return the summary dict, with ``seconds``: the
-    wall time of the eval loop (data, device work and host metrics)."""
+    wall time of the eval loop (data, device work and host metrics).
+
+    ``device_metrics``: AUROC / AUPR / FPR95 on the device. ``fused_blocks``
+    (no CLI flag, as in the JAX package): the backbone's eligible
+    bottlenecks run through the fused kernel."""
     if cfg.VAL.visualize:
         raise NotImplementedError("VAL.visualize is not ported yet")
-    model = build_anomaly_model(cfg, device)
+    model = build_anomaly_model(cfg, device, fused_blocks=fused_blocks)
     init_or_load_variables(cfg, model, seed=seed)
 
     pipeline = ValPipeline(
@@ -51,7 +58,8 @@ def main(cfg, precision_dtype=torch.float32, max_images=None,
         method=cfg.OOD.ood,
         out_labels=cfg.OOD.out_labels,
         exclude_back=cfg.OOD.exclude_back,
-        dtype=precision_dtype)
+        dtype=precision_dtype,
+        device_metrics=device_metrics)
     tic = time.perf_counter()
     if batch_images > 1:
         result = evaluator.evaluate_batched(loader,
@@ -70,10 +78,14 @@ def _entry():
                         help="images per forward (1 = per-image)")
     parser.add_argument("--max-images", type=int, default=None,
                         help="evaluate only the first N images")
+    parser.add_argument("--device-metrics", action="store_true",
+                        help="compute AUROC/AUPR/FPR on the device (the "
+                             "host float64 sweep is the default)")
     args = parser.parse_args()
     cfg = parse_config(args)
     main(cfg, compute_dtype(args), max_images=args.max_images,
-         batch_images=args.batch_images, device=args.device)
+         batch_images=args.batch_images, device=args.device,
+         device_metrics=args.device_metrics)
 
 
 if __name__ == "__main__":

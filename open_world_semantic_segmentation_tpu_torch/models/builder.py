@@ -49,11 +49,12 @@ class ModelBuilder:
 
     @staticmethod
     def build_encoder(arch="resnet50dilated", *,
-                      bn: Optional[BNConfig] = None):
+                      bn: Optional[BNConfig] = None,
+                      fused_blocks: bool = False):
         arch = arch.lower()
         if arch == "resnet50dilated":
             return resnet50(stem="deep", output_stride=8,
-                            bn=bn or BNConfig())
+                            bn=bn or BNConfig(), fused_blocks=fused_blocks)
         raise _not_ported("encoder", arch)
 
     @staticmethod
@@ -68,8 +69,12 @@ class ModelBuilder:
     @staticmethod
     def build_segmentation_model(arch_encoder, arch_decoder, num_class,
                                  fc_dim=None, *,
-                                 bn: Optional[BNConfig] = None):
-        encoder = ModelBuilder.build_encoder(arch_encoder, bn=bn)
+                                 bn: Optional[BNConfig] = None,
+                                 fused_blocks: bool = False):
+        """``fused_blocks``: route the encoder's eligible bottlenecks
+        through the fused kernel (``models/resnet.py``); off by default."""
+        encoder = ModelBuilder.build_encoder(arch_encoder, bn=bn,
+                                             fused_blocks=fused_blocks)
         fc_dim = fc_dim or ModelBuilder.ENCODER_FC_DIM[arch_encoder.lower()]
         decoder = ModelBuilder.build_decoder(arch_decoder, fc_dim, num_class,
                                              bn=bn)

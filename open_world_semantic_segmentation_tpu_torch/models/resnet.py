@@ -10,6 +10,12 @@ the new one, which is what both reference mechanisms produce.
 Attribute names are the reference's (``conv1``, ``bn1``, ``layer3.0.conv2``,
 ``layer3.0.downsample.0``, ...), so its ``encoder_epoch_*.pth`` loads with
 ``load_state_dict``. The forward returns the four stage outputs.
+
+``fused_blocks=True`` routes every eligible ``Bottleneck`` (eval mode,
+stride 1, one group, a geometry ``ops.fused_block.fused_block_tile``
+accepts) through the fused kernel of ``ops/fused_block.py``: one launch
+per block instead of three convolutions, a skip and two activations. It
+is off by default; the choice per block is made once, at construction.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from .layers import BNConfig, ConvBN
+from ..ops.fused_block import fold_convbn, fused_block_tile, fused_bottleneck
 from ..ops.pool import max_pool_3x3_s2_p1
 
 
@@ -55,7 +62,7 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, first_dilation: int = 1,
                  downsample: bool = False, bn: BNConfig = BNConfig(),
-                 groups: int = 1, base_width: int = 64):
+                 groups: int = 1, base_width: int = 64, fused: bool = False):
         super().__init__()
         width = int(planes * (base_width / 64.0)) * groups
         self.conv1 = nn.Conv2d(inplanes, width, 1, bias=False)
@@ -71,13 +78,72 @@ class Bottleneck(nn.Module):
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (ConvBN(inplanes, planes * 4, 1, stride,
                                   relu=False, bn=bn) if downsample else None)
+        # the fused route's tile, or None where the block stays unfused
+        self.fused_tile = None
+        if fused and stride == 1 and groups == 1:
+            self.fused_tile = fused_block_tile(inplanes, width, planes * 4,
+                                               first_dilation)
+        self._folded = {}     # (dtype, device) -> folded kernel weights
 
     def forward(self, x):
+        if self.fused_tile is not None and not self.training:
+            return self._fused_forward(x)
         out = self.relu(self.bn1(self.conv1(x)))
         out = self.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
         residual = x if self.downsample is None else self.downsample(x)
         return self.relu(out + residual)
+
+    # -- fused route ------------------------------------------------------
+    def _fused_forward(self, x):
+        """The block in one kernel launch. Autocast does not reach the
+        kernel, so the route casts x and the weights to the autocast dtype
+        itself. A channels_last NCHW input is a contiguous NHWC tensor, and
+        the output is returned as the channels_last NCHW view of the
+        kernel's NHWC result."""
+        dtype = x.dtype
+        if torch.is_autocast_enabled(x.device.type):
+            dtype = torch.get_autocast_dtype(x.device.type)
+        key = (dtype, x.device)
+        if key not in self._folded:
+            self._folded[key] = self._fold(dtype, x.device)
+        xh = x.to(dtype).permute(0, 2, 3, 1).contiguous()
+        out = fused_bottleneck(xh, *self._folded[key],
+                               dilation=self.conv2.dilation[0])
+        return out.permute(0, 3, 1, 2)
+
+    @torch.no_grad()
+    def _fold(self, dtype, device):
+        """(w1, b1, w2, b2, w3, b3, wd, bd): BN folded into the convs in
+        float32, weights in the kernel's layout and ``dtype``."""
+        pairs = [(self.conv1, self.bn1), (self.conv2, self.bn2),
+                 (self.conv3, self.bn3)]
+        if self.downsample is not None:
+            pairs.append((self.downsample[0], self.downsample[1]))
+        folded = []
+        for conv, bn in pairs:
+            w, b = fold_convbn(conv.weight, bn.weight, bn.bias,
+                               bn.running_mean, bn.running_var, bn.eps)
+            if conv.kernel_size == (1, 1):
+                w = w[0, 0]
+            folded += [w.to(device, dtype).contiguous(), b.to(device)]
+        if self.downsample is None:
+            folded += [None, None]
+        return folded
+
+    # the folded weights follow the parameters: dropped on train()/eval(),
+    # load_state_dict and moves between devices or dtypes
+    def train(self, mode: bool = True):
+        self._folded = {}
+        return super().train(mode)
+
+    def _apply(self, *args, **kwargs):
+        self._folded = {}
+        return super()._apply(*args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._folded = {}
+        return super()._load_from_state_dict(*args, **kwargs)
 
 
 def _stage_plan(output_stride: int) -> Sequence[Tuple[int, int]]:
@@ -102,8 +168,12 @@ class ResNet(nn.Module):
     def __init__(self, block=Bottleneck, layers=(3, 4, 6, 3),
                  stem: str = "deep", output_stride: int = 8,
                  bn: BNConfig = BNConfig(), groups: int = 1,
-                 base_width: int = 64, planes=(64, 128, 256, 512)):
+                 base_width: int = 64, planes=(64, 128, 256, 512),
+                 fused_blocks: bool = False):
         super().__init__()
+        if fused_blocks and block is not Bottleneck:
+            raise ValueError("fused_blocks routes Bottleneck blocks only")
+        fused = {"fused": True} if fused_blocks else {}
         if stem != "deep":
             raise NotImplementedError(
                 f"stem {stem!r} is not ported yet (ROADMAP.md queues it)")
@@ -133,7 +203,7 @@ class ResNet(nn.Module):
                     first_dilation=prev_dilation if is_first else dilation,
                     downsample=is_first and (stride != 1
                                              or inplanes != out_ch),
-                    bn=bn, groups=groups, base_width=base_width))
+                    bn=bn, groups=groups, base_width=base_width, **fused))
                 inplanes = out_ch
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
             prev_dilation = dilation

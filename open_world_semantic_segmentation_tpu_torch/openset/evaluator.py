@@ -5,7 +5,8 @@ reference's ``anomaly/eval_ood_traditional.py:151-653``): the multi-scale
 forward, score averaging, anomaly map, argmax and the IoU/accuracy
 histograms run on the device; the conf map goes to the host for the f64
 AUROC/AUPR/FPR95 sweep (``metrics/anom.py``), together with a handful of
-counters.
+counters. With ``device_metrics`` the sweep runs on the device too
+(``metrics/anom_device.py``) and the conf map stays there.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from ..data.odgt import IMAGENET_MEAN, IMAGENET_STD
 from ..metrics.anom import eval_ood_measure
+from ..metrics.anom_device import ood_measures_from_maps
 from ..metrics.meters import AverageMeter
 from ..metrics.segmentation import intersection_and_union_torch
 from ..ops.resize import bilinear_resize
@@ -60,12 +62,16 @@ class OODEvaluator:
 
     ``model`` is a ``SegmentationModel`` in eval mode on its device;
     ``dtype`` bfloat16 runs it under autocast (float32 parameters, bf16
-    compute), float32 runs it as it is.
+    compute), float32 runs it as it is. ``device_metrics`` computes AUROC /
+    AUPR / FPR95 on the device: only they and their ``valid`` flag reach
+    the host, and ``metric_time`` times their readback. The host float64
+    sweep is the default.
     """
 
     def __init__(self, model, *, num_class: int, method: str = "dissum",
                  out_labels: Sequence[int] = (13,),
-                 exclude_back: bool = False, dtype=torch.float32):
+                 exclude_back: bool = False, dtype=torch.float32,
+                 device_metrics: bool = False):
         self.model = model
         self.device = next(model.parameters()).device
         self.num_class = num_class
@@ -73,12 +79,13 @@ class OODEvaluator:
         self.out_labels = tuple(out_labels)
         self.exclude_back = exclude_back
         self.dtype = dtype
+        self.device_metrics = device_metrics
 
         self.acc_meter = AverageMeter()
         self.intersection_meter = AverageMeter()
         self.union_meter = AverageMeter()
         self.time_meter = AverageMeter()     # device batch, per image
-        self.metric_meter = AverageMeter()   # host AUROC/AUPR/FPR sweep
+        self.metric_meter = AverageMeter()   # AUROC/AUPR/FPR on the host
         self.wait_meter = AverageMeter()     # blocked on the loader
         self.aurocs, self.auprs, self.fprs = [], [], []
 
@@ -86,7 +93,9 @@ class OODEvaluator:
     @torch.inference_mode()
     def _device_batch(self, items):
         """Run one batch of same-shape items on the device; return the
-        per-image conf maps, predictions and counters on the host."""
+        per-image conf maps, predictions and counters on the host, or,
+        with device metrics, the counters on the host and the (auroc,
+        aupr, fpr, valid) tensor still on the device."""
         dev = self.device
         seg = torch.from_numpy(
             np.concatenate([it["seg_label"] for it in items])).to(dev)
@@ -113,10 +122,17 @@ class OODEvaluator:
                                                         self.num_class)
             counts = torch.stack([(valid & (pred == label)).sum(),
                                   valid.sum()])
-            outs.append({"conf": conf.float(), "pred": pred, "inter": inter,
-                         "union": union, "counts": counts})
-        # one device -> host copy per tensor; blocks until the batch is done
-        return [{k: v.cpu().numpy() for k, v in o.items()} for o in outs]
+            out = {"inter": inter, "union": union, "counts": counts}
+            if self.device_metrics:
+                out["ood"] = torch.stack(ood_measures_from_maps(
+                    conf, label, out_labels=self.out_labels)).float()
+            else:
+                out.update(conf=conf.float(), pred=pred)
+            outs.append(out)
+        # one device -> host copy per tensor; blocks until the batch is
+        # done (the device metrics are read back in _record)
+        return [{k: v if k == "ood" else v.cpu().numpy()
+                 for k, v in o.items()} for o in outs]
 
     def _timed(self, loader):
         """Iterate ``loader``, timing each wait for the next item."""
@@ -132,8 +148,12 @@ class OODEvaluator:
 
     def _record(self, item, out):
         tic = time.perf_counter()
-        res = eval_ood_measure(out["conf"], item["seg_label"][0],
-                               out_labels=self.out_labels)
+        if self.device_metrics:
+            auroc, aupr, fpr, valid = out["ood"].tolist()
+            res = (auroc, aupr, fpr) if valid else None
+        else:
+            res = eval_ood_measure(out["conf"], item["seg_label"][0],
+                                   out_labels=self.out_labels)
         self.metric_meter.update(time.perf_counter() - tic)
         if res is not None:
             self.aurocs.append(res[0])
@@ -144,7 +164,9 @@ class OODEvaluator:
         self.acc_meter.update(acc, valid_sum)
         self.intersection_meter.update(out["inter"])
         self.union_meter.update(out["union"])
-        return {"conf": out["conf"], "pred": out["pred"], "acc": acc,
+        # with device metrics the conf map and the prediction stay on the
+        # device: None here
+        return {"conf": out.get("conf"), "pred": out.get("pred"), "acc": acc,
                 "ood": res}
 
     def _run(self, items):

@@ -47,9 +47,9 @@ def jax_twin():
         decoder=JaxPPMDeepsupEmbedding(num_class=NUM_CLASS, fc_dim=FC_DIM))
 
 
-def port_twin():
+def port_twin(fused_blocks=False):
     return SegmentationModel(
-        ResNet(block=Bottleneck, **TWIN),
+        ResNet(block=Bottleneck, fused_blocks=fused_blocks, **TWIN),
         PPMDeepsupEmbedding(num_class=NUM_CLASS, fc_dim=FC_DIM)).eval()
 
 
@@ -87,17 +87,17 @@ def jax_twin_apply(variables, x, seg_size):
         variables, jnp.asarray(x), seg_size=seg_size)
 
 
-def port_twin_from(variables):
-    model = port_twin()
+def port_twin_from(variables, fused_blocks=False):
+    model = port_twin(fused_blocks)
     enc, dec = state_dict_from_jax(variables)
     model.encoder.load_state_dict(enc)
     model.decoder.load_state_dict(dec)
     return model
 
 
-def _image(seed):
+def _image(seed, size=(64, 64)):
     return np.random.default_rng(seed).standard_normal(
-        (1, 64, 64, 3)).astype(np.float32)
+        (1, *size, 3)).astype(np.float32)
 
 
 def _assert_scores_close(got, want):
@@ -119,6 +119,46 @@ def test_eval_forward_matches_jax():
     same = (got["scores"].numpy().argmax(-1)
             == np.asarray(want["scores"]).argmax(-1)).mean()
     assert same >= 0.999
+
+
+@pytest.mark.parametrize("size", [(64, 64), (50, 70)])
+def test_eval_forward_fused_blocks_matches_jax(size):
+    """The port twin with ``fused_blocks=True`` (every stride-1 bottleneck
+    through ``ops/fused_block.py``, its plain version on the CPU) against
+    the JAX twin; (50, 70) gives maps that do not fill the kernel's 8x8
+    tiles."""
+    variables = jax_twin_variables()
+    x = _image(2, size)
+    want = jax_twin_apply(variables, x, seg_size=size)
+    model = port_twin_from(variables, fused_blocks=True)
+    routed = [name for name, m in model.encoder.named_modules()
+              if isinstance(m, Bottleneck) and m.fused_tile is not None]
+    assert routed == ["layer1.0", "layer3.0", "layer4.0"]  # not strided 2.0
+    with torch.no_grad():
+        got = model(torch.from_numpy(x), seg_size=size)
+    for key in ("scores", "ft"):
+        _assert_scores_close(got[key].numpy(), np.asarray(want[key]))
+    same = (got["scores"].numpy().argmax(-1)
+            == np.asarray(want["scores"]).argmax(-1)).mean()
+    assert same >= 0.999
+
+
+def test_fused_route_folds_once_and_follows_parameters():
+    """The folded weights are cached per dtype and device, and dropped
+    when the parameters may change (train(), load_state_dict)."""
+    model = port_twin_from(jax_twin_variables(), fused_blocks=True)
+    block = model.encoder.layer1[0]
+    x = torch.from_numpy(_image(3))
+    with torch.no_grad():
+        model(x, seg_size=(64, 64))
+        folded = block._folded[(torch.float32, torch.device("cpu"))]
+        model(x, seg_size=(64, 64))
+        assert block._folded[(torch.float32, torch.device("cpu"))] is folded
+        model.train()
+        assert block._folded == {}
+        model.eval()(x, seg_size=(64, 64))
+        model.encoder.load_state_dict(model.encoder.state_dict())
+        assert block._folded == {}
 
 
 @pytest.mark.parametrize("stride,first_dilation,dilation",
