@@ -13,9 +13,11 @@ Phases (any failure exits non-zero and prints no result):
    the card at the eval path's shapes, then timed with CUDA events beside
    its plain version, its bound and, where one exists, a library yardstick:
    knn_cosine in float32 (atol 2e-5); fused_bottleneck at the seven block
-   geometries of resnet50dilated at the largest pyramid level and at
-   ragged small shapes, in bf16 (tolerance 5e-2) and float32 with TF32 off
-   (1e-4), timed in bf16 beside the cuDNN chain of the unfused block;
+   geometries of resnet50dilated at the largest pyramid level, at ragged
+   small shapes and at batch 2, dilation 8 and Cmid 1024, in bf16
+   (tolerance 5e-2) and float32 with TF32 off (1e-4), timed in bf16 beside
+   the cuDNN chain of the unfused block, with its three launches (conv1,
+   conv2, conv3 + skip) also timed apart;
 4. slice phase: a synthetic StreetHazards tree of 720x1280 images, a
    full-width resnet50dilated + ppm_deepsup_embedding with seeded random
    weights, ``cli.eval_ood.main`` on cuda in bf16: OOD.ood dissum, knn,
@@ -26,7 +28,10 @@ Phases (any failure exits non-zero and prints no result):
    the fused run, neither elsewhere); every metric must be finite; the
    device metrics must lie within 2e-5 of the host sweep's; each run's wall
    time per image is split into the device batch, the metric sweep and
-   loader waits;
+   loader waits; then the 5-scale forward of one image, unfused and
+   fused, timed alternately six times each, and the routed bottleneck
+   modules of both models timed the same way on their inputs at every
+   level (medians and every round printed);
 5. device check: one small image through the full-width model in fp32 with
    TF32 off, on cuda and on the CPU, unfused and fused; the score maps must
    agree; and the fused route against the unfused one on cuda in bf16.
@@ -81,7 +86,10 @@ BLOCK_GEOMETRIES = (
     ("layer4.0", 71, 125, 1024, 512, 2048, 2, True, 1),
     ("layer4.1-2", 71, 125, 2048, 512, 2048, 4, False, 2),
 )
-# ragged small shapes: odd sizes, maps smaller than a tile or the halo
+# ragged small shapes: odd sizes, maps smaller than a patch or the
+# dilation; then layer4 at the smallest pyramid level (304x536) at batch
+# 2, dilation 8 and Cmid 1024, which a one-pass tile with a y1 halo and
+# the conv2 sum in shared memory cannot hold
 # (n, h, w, Cin, Cmid, Cout, dilation, downsample)
 BLOCK_RAGGED = (
     (2, 9, 13, 128, 64, 256, 1, True),
@@ -89,6 +97,9 @@ BLOCK_RAGGED = (
     (2, 11, 3, 1024, 256, 1024, 2, False),
     (1, 6, 11, 2048, 512, 2048, 4, False),
     (1, 3, 3, 1024, 512, 2048, 2, True),
+    (2, 38, 67, 2048, 512, 2048, 4, False),
+    (1, 23, 37, 2048, 512, 2048, 8, False),
+    (1, 19, 29, 1024, 1024, 2048, 2, True),
 )
 N_IMAGES = 16
 FULL_SIZE = (720, 1280)
@@ -314,32 +325,33 @@ def fused_kernel_phase():
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
 
-    # timing in bf16 at the eval geometries, one image each
-    lib = fused_block._library()
-    stream = torch.cuda.current_stream().cuda_stream
+    # timing in bf16 at the eval geometries, one image each: the wrapper,
+    # the three launches alone (``kernel_ms``) and each launch apart
     per_geometry = []
-    totals = dict.fromkeys(("ms", "kernel_ms", "plain_ms", "library_ms",
-                            "ops_ms", "bytes_ms", "bound_ms"), 0.0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    totals = dict.fromkeys(("ms", "kernel_ms", "conv1_ms", "conv2_ms",
+                            "conv3_ms", "plain_ms", "library_ms", "ops_ms",
+                            "bytes_ms", "bound_ms"), 0.0)
     for name, h, w, cin, cmid, cout, d, down, count in BLOCK_GEOMETRIES:
         x, ws = _block_inputs(gen, 1, h, w, cin, cmid, cout, down,
                               torch.bfloat16)
-        out = torch.empty((1, h, w, cout), dtype=x.dtype, device="cuda")
-        ptrs = [None if t is None else t.data_ptr() for t in (x, *ws, out)]
-
-        def kernel():
-            if lib.fused_bottleneck(1, *ptrs, 1, h, w, cin, cmid, cout, d,
-                                    stream) != 0:
-                raise RuntimeError("fused_bottleneck launch failed")
-
+        launch, _ = fused_block.fused_bottleneck_launcher(x, *ws,
+                                                          dilation=d)
         row = {"block": name, "shape": [h, w, cin, cmid, cout, d],
                "downsample": down, "per_forward": count,
                "ms": cuda_time_ms(
                    lambda: fused_bottleneck(x, *ws, dilation=d)),
-               "kernel_ms": cuda_time_ms(kernel),
+               "kernel_ms": cuda_time_ms(launch),
+               # conv2 and conv3 read what the earlier launches left in
+               # the scratch y1 and y2
+               "conv1_ms": cuda_time_ms(lambda: launch(1)),
+               "conv2_ms": cuda_time_ms(lambda: launch(2)),
+               "conv3_ms": cuda_time_ms(lambda: launch(4)),
                "plain_ms": cuda_time_ms(
                    lambda: fused_bottleneck_plain(x, *ws, dilation=d),
                    iters=5),
-               "library_ms": cuda_time_ms(_cudnn_chain(x, ws, d))}
+               "library_ms": cuda_time_ms(_cudnn_chain(x, ws, d)),
+               "plan": fused_block.launch_plan(1, h, w, cmid, cout, sms)}
         t_ops, t_bytes = fused_bottleneck_bound_ms(h, w, cin, cmid, cout,
                                                    down)
         row.update(ops_ms=t_ops, bytes_ms=t_bytes,
@@ -362,6 +374,9 @@ def fused_kernel_phase():
         # sums over the 15 fused blocks of one forward at 568x1000, bf16
         "ms": totals["ms"],
         "kernel_ms": totals["kernel_ms"],
+        "conv1_ms": totals["conv1_ms"],
+        "conv2_ms": totals["conv2_ms"],
+        "conv3_ms": totals["conv3_ms"],
         "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"],
         "bound_by": ("operations" if totals["ops_ms"] >= totals["bytes_ms"]
@@ -525,11 +540,7 @@ def slice_phase(root):
             f"|diff| {abs(dev - host):.3g}")
         if not abs(dev - host) <= METRIC_ATOL:
             raise AssertionError(f"device {key} {dev} vs host {host}")
-    for fused in (False, True):
-        ms = device_forward_ms(cfg, fused)
-        summaries[f"device_forward_ms_per_img{'_fused' if fused else ''}"] = ms
-        log(f"device forward, 5 scales, batch 1, fused_blocks {fused}: "
-            f"{ms:.2f} ms/img")
+    summaries["forward_comparison"] = forward_comparison(cfg)
     return summaries, launches, cfg
 
 
@@ -549,31 +560,89 @@ def fused_route_verdicts(cfg):
     return sum(verdicts.values())
 
 
-def device_forward_ms(cfg, fused_blocks=False):
-    """CUDA-event time of the model's 5-scale forward of one image (bf16),
-    without data movement, scoring or metrics."""
+def forward_comparison(cfg, rounds=6):
+    """The 5-scale forward of one image (bf16, CUDA events, no data
+    movement, scoring or metrics) of the unfused model and of the one with
+    ``fused_blocks=True``, timed alternately (unfused, fused, fused,
+    unfused, ...) ``rounds`` times each; then the routed bottleneck
+    modules of both models, each on the input it gets at every pyramid
+    level, timed the same way and summed over the blocks of a level and
+    of the forward. Returns every round's times and their medians."""
     import torch
 
     from open_world_semantic_segmentation_tpu_torch.cli._common import (
         build_anomaly_model, init_or_load_variables)
     from open_world_semantic_segmentation_tpu_torch.data.odgt import (
         ValPipeline)
+    from open_world_semantic_segmentation_tpu_torch.models.resnet import (
+        Bottleneck)
     from open_world_semantic_segmentation_tpu_torch.openset.evaluator import (
         multi_scale_forward)
 
-    model = init_or_load_variables(
-        cfg, build_anomaly_model(cfg, DEVICE, fused_blocks=fused_blocks))
+    models = {fused: init_or_load_variables(
+        cfg, build_anomaly_model(cfg, DEVICE, fused_blocks=fused))
+        for fused in (False, True)}
     item = ValPipeline(cfg.DATASET.root_dataset, cfg.DATASET.list_val,
                        img_sizes=cfg.DATASET.imgSizes)[0]
     pyramid = [torch.from_numpy(p).to(DEVICE) for p in item["img_data"]]
     seg_size = item["seg_label"].shape[1:3]
 
-    def forward():
-        with torch.inference_mode(), torch.autocast(DEVICE,
-                                                    dtype=torch.bfloat16):
-            multi_scale_forward(model, pyramid, seg_size)
+    def under_autocast(fn):
+        def run():
+            with torch.inference_mode(), torch.autocast(
+                    DEVICE, dtype=torch.bfloat16):
+                fn()
+        return run
 
-    return cuda_time_ms(forward, iters=10)
+    forwards = {fused: under_autocast(
+        lambda m=model: multi_scale_forward(m, pyramid, seg_size))
+        for fused, model in models.items()}
+    # the routed blocks' inputs, level by level, from one fused forward
+    modules = {fused: dict(model.encoder.named_modules())
+               for fused, model in models.items()}
+    routed = [name for name, m in modules[True].items()
+              if isinstance(m, Bottleneck) and m.fused_tile is not None]
+    inputs = []
+    hooks = [modules[True][name].register_forward_pre_hook(
+        lambda _, args, name=name: inputs.append((name, args[0])))
+        for name in routed]
+    forwards[True]()
+    for hook in hooks:
+        hook.remove()
+    n_levels = len(pyramid)
+    if len(inputs) != n_levels * len(routed):
+        raise AssertionError(f"captured {len(inputs)} block inputs")
+
+    order = [False, True, True, False] * (rounds // 2)
+    forward_ms = {False: [], True: []}
+    level_ms = {False: [], True: []}          # per round: ms per level
+    for fused in order:
+        forward_ms[fused].append(cuda_time_ms(forwards[fused], iters=10))
+    for fused in order:
+        levels = [0.0] * n_levels
+        for k, (name, x) in enumerate(inputs):
+            block = modules[fused][name]
+            levels[k // len(routed)] += cuda_time_ms(
+                under_autocast(lambda b=block, x=x: b(x)), iters=10)
+        level_ms[fused].append(levels)
+    result = {}
+    for fused in (False, True):
+        key = "fused" if fused else "unfused"
+        blocks = [sum(levels) for levels in level_ms[fused]]
+        result[key] = {
+            "forward_ms": forward_ms[fused],
+            "forward_ms_median": float(np.median(forward_ms[fused])),
+            "routed_blocks_ms": blocks,
+            "routed_blocks_ms_median": float(np.median(blocks)),
+            "routed_blocks_ms_median_per_level": [
+                float(v) for v in np.median(level_ms[fused], axis=0)],
+        }
+    for what in ("forward_ms", "routed_blocks_ms"):
+        result[f"{what}_gain_median"] = (result["unfused"][f"{what}_median"]
+                                         - result["fused"][f"{what}_median"])
+    log("forward comparison, 5 scales, batch 1, "
+        f"{len(routed)} routed blocks per level: " + json.dumps(result))
+    return result
 
 
 # ---------------------------------------------------------------------------

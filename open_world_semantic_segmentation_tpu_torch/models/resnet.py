@@ -13,9 +13,11 @@ Attribute names are the reference's (``conv1``, ``bn1``, ``layer3.0.conv2``,
 
 ``fused_blocks=True`` routes every eligible ``Bottleneck`` (eval mode,
 stride 1, one group, a geometry ``ops.fused_block.fused_block_tile``
-accepts) through the fused kernel of ``ops/fused_block.py``: one launch
-per block instead of three convolutions, a skip and two activations. It
-is off by default; the choice per block is made once, at construction.
+accepts) through the kernel of ``ops/fused_block.py``: three launches per
+block (conv1, conv2, conv3 with the skip, each with its bias, activation
+and rounding fused) instead of three convolutions, a skip and two
+activations. It is off by default; the choice per block is made once, at
+construction.
 """
 
 from __future__ import annotations
@@ -96,11 +98,12 @@ class Bottleneck(nn.Module):
 
     # -- fused route ------------------------------------------------------
     def _fused_forward(self, x):
-        """The block in one kernel launch. Autocast does not reach the
-        kernel, so the route casts x and the weights to the autocast dtype
-        itself. A channels_last NCHW input is a contiguous NHWC tensor, and
-        the output is returned as the channels_last NCHW view of the
-        kernel's NHWC result."""
+        """The block through ``fused_bottleneck`` (three kernel launches
+        on the card). Autocast does not reach the kernel, so the route
+        casts x and the weights to the autocast dtype itself. A
+        channels_last NCHW input is a contiguous NHWC tensor, and the
+        output is returned as the channels_last NCHW view of the kernel's
+        NHWC result."""
         dtype = x.dtype
         if torch.is_autocast_enabled(x.device.type):
             dtype = torch.get_autocast_dtype(x.device.type)

@@ -1,7 +1,7 @@
-"""Fused inference ResNet bottleneck (the opt-in backbone route).
+"""Inference ResNet bottleneck (the opt-in backbone route).
 
 Counterpart of the JAX package's ``ops/pallas_block.py``. For an NHWC input
-x (N, H, W, Cin) and BN-folded weights in the kernel's layout:
+x (N, H, W, Cin) and BN-folded weights in the JAX layouts:
 
     y1  = relu(x . w1 + b1)                    (Cin -> Cmid, 1x1)
     y2  = relu(conv3x3_d(y1, w2) + b2)         (Cmid -> Cmid, dilation d,
@@ -14,15 +14,24 @@ with skip = x (Cin == Cout) or ``x . wd + bd``; stride 1. Weights: w1
 biases float32. Products accumulate in float32; y1 and y2 are stored in
 x's dtype, and the skip is added in float32, where the JAX kernel rounds.
 
+On the card one block call is three launches of the kernel template of
+``csrc/fused_bottleneck.cu`` (its note says why three and not one): conv1
+into a scratch y1, conv2 as nine taps read from y1 into a scratch y2,
+conv3 with the skip (the downsample as a second K segment) into the
+output. Each launch tiles its output into 8 x 16 pixel patches of one
+image times ``bn`` output channels.
+
 - ``fold_convbn``: an OIHW conv and its inference BatchNorm folded into a
   (kh, kw, I, O) float32 weight and a bias.
-- ``fused_block_tile``: whether the kernels take a block's geometry (the
-  H100 shared-memory budget); the tile, or None.
+- ``fused_block_tile``: whether the kernel takes a block's geometry
+  (dilation >= 1, channel rows 16-byte aligned, which TMA needs); the
+  patch, or None.
+- ``launch_plan``: each phase's ``bn``, output-channel tiles and grid,
+  for a card of ``sms`` streaming multiprocessors.
 - ``fused_bottleneck_plain``: plain PyTorch, the JAX kernel's rounding.
 - ``fused_bottleneck``: the wrapper. A CPU tensor goes to the plain
-  version; a CUDA tensor goes to the hand-written kernel of
-  ``csrc/fused_bottleneck.cu`` or raises. ``fused_bottleneck.launches``
-  counts kernel launches.
+  version; a CUDA tensor goes to the kernel or raises.
+  ``fused_bottleneck.launches`` counts block calls that reach the kernel.
 
 The JAX kernel's padded width and slack columns are TPU tiling artefacts
 and have no counterpart here: the width is the image's.
@@ -31,6 +40,7 @@ and have no counterpart here: the width is the image's.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -39,12 +49,9 @@ import torch.nn.functional as F
 _SOURCE = "fused_bottleneck.cu"
 
 # must agree with csrc/fused_bottleneck.cu
-TILE = 8              # a block computes TILE x TILE output pixels
-KC = 32               # conv1-output / conv2-input channels per chunk
-NC = 64               # output channels of conv2 and conv3 per chunk
-KK = 32               # reduction depth staged in shared memory
-MAX_HALO_PIXELS = 256  # (TILE + 2 d)^2, so d <= 4
-MAX_SMEM = 232448     # per-block shared memory of an H100 (opt-in)
+PATCH_H, PATCH_W = 8, 16        # a tile's output pixels, of one image
+BN_CHOICES = (128, 64)          # a tile's output channels
+CTAS_PER_SM = 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -60,44 +67,39 @@ def fold_convbn(weight, bn_weight, bn_bias, bn_mean, bn_var,
     return w.contiguous(), b
 
 
-def fused_block_smem_bytes(cmid: int, dilation: int) -> int:
-    """Shared memory of one kernel block, the larger of the two kernels'
-    (``csrc/fused_bottleneck.cu`` says what each holds).
+def fused_block_tile(cin: int, cmid: int, cout: int, dilation: int,
+                     itemsize: int = 2) -> Optional[Tuple[int, int]]:
+    """The output patch the kernel uses for this block geometry, or None
+    if it cannot take it: dilation below 1, or a channel count whose rows
+    are not 16-byte aligned in elements of ``itemsize`` bytes (TMA's
+    stride rule: multiples of 8 in bf16, the default, and 4 in float32)."""
+    align = 16 // itemsize
+    if dilation < 1 or min(cin, cmid, cout) < 1:
+        return None
+    if cin % align or cmid % align or cout % align:
+        return None
+    return PATCH_H, PATCH_W
 
-    float32 (scalar FMAs): the float32 conv2 accumulator of the tile
-    (rows padded by one word), a KC-channel chunk of y1 over the halo'd
-    window, the staged input and the staged weights, all float32.
-    bfloat16 (tensor cores): the float32 accumulator (rows padded by 8), a
-    bf16 y1 chunk over the halo'd window rounded up to 16 pixels, and one
-    region that the conv1 staging, the conv1 epilogue, the nine staged
-    conv2 taps and the conv3 staging take in turn.
+
+def launch_plan(n: int, h: int, w: int, cmid: int, cout: int,
+                sms: int) -> Tuple[Tuple[int, int, int], ...]:
+    """(bn, output-channel tiles, grid) for conv1, conv2 and conv3 + skip
+    on a card of ``sms`` streaming multiprocessors.
+
+    A phase's tiles are the N x ceil(H / 8) x ceil(W / 16) patches times
+    its channel tiles; tile t is channel tile t % tiles of patch t // tiles,
+    patches in image, row, column order. The kernel is persistent: CTA b
+    of the grid takes tiles b, b + grid, ... A tile is 128 channels wide (64
+    where the phase has at most 64), and the grid is two CTAs per SM or
+    the number of tiles, whichever is smaller.
     """
-    halo = (TILE + 2 * dilation) ** 2
-    cmid_pad = -(-cmid // NC) * NC
-    f32 = 4 * (TILE * TILE * (cmid_pad + 1) + halo * (KC + 1)
-               + max(halo, TILE * TILE) * (KK + 1) + KK * NC)
-    # bf16 rows padded to 32 bytes for WMMA: 64 + 16, 32 + 16 elements
-    halo16, px = -(-halo // 16) * 16, TILE * TILE
-    shared = max(halo16 * 80 * 2 + 64 * 48 * 2,      # conv1 staging
-                 halo16 * 40 * 4,                    # conv1 epilogue
-                 9 * KC * 80 * 2,                    # conv2 taps
-                 2 * px * 80 * 2 + px * 72 * 4)      # conv3 staging
-    bf16 = 4 * px * (cmid_pad + 8) + halo16 * 48 * 2 + shared
-    return max(f32, bf16)
-
-
-def fused_block_tile(cin: int, cmid: int, cout: int,
-                     dilation: int) -> Optional[Tuple[int, int]]:
-    """The output tile the kernels use for this block geometry, or None if
-    they cannot take it (dilation outside 1..4, or over the shared memory
-    of one H100 block). The same verdict for float32 and bfloat16."""
-    if min(cin, cmid, cout) < 1 or not 1 <= dilation:
-        return None
-    if (TILE + 2 * dilation) ** 2 > MAX_HALO_PIXELS:
-        return None
-    if fused_block_smem_bytes(cmid, dilation) > MAX_SMEM:
-        return None
-    return TILE, TILE
+    patches = n * -(-h // PATCH_H) * -(-w // PATCH_W)
+    plan = []
+    for channels in (cmid, cmid, cout):
+        bn = BN_CHOICES[-1] if channels <= BN_CHOICES[-1] else BN_CHOICES[0]
+        tiles = -(-channels // bn)
+        plan.append((bn, tiles, min(patches * tiles, sms * CTAS_PER_SM)))
+    return tuple(plan)
 
 
 def fused_bottleneck_plain(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, *,
@@ -128,12 +130,14 @@ def fused_bottleneck_plain(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, *,
     return torch.relu(out + skip).to(cdt)
 
 
+@functools.lru_cache(maxsize=None)
 def _library():
     from ._build import load
 
     lib = load(_SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fused_bottleneck.argtypes = [i32] + [ptr] * 10 + [i32] * 7 + [ptr]
+    lib.fused_bottleneck.argtypes = ([i32] + [ptr] * 12 + [i32] * 7
+                                     + [ctypes.POINTER(i32), i32, ptr])
     lib.fused_bottleneck.restype = i32
     return lib
 
@@ -162,20 +166,34 @@ def _check_shapes(x, w1, b1, w2, b2, w3, b3, wd, bd):
     return cin, cmid, cout
 
 
-def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, *,
-                     dilation: int = 1):
-    """Fused inference bottleneck on an NHWC batch; see the module note.
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (132 on an H100
+    SXM, 114 on an H100 PCIe)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
-    CPU tensors take ``fused_bottleneck_plain``. CUDA tensors launch the
-    kernel (float32 or bfloat16, contiguous input, one launch for the
-    whole batch), or raise where the kernel cannot take them.
-    """
+
+@functools.lru_cache(maxsize=1024)
+def _plan_c(n: int, h: int, w: int, cmid: int, cout: int, sms: int):
+    """``launch_plan`` as the C array the kernel's entry point takes."""
+    plan = launch_plan(n, h, w, cmid, cout, sms)
+    return (ctypes.c_int * 9)(*[v for phase in plan for v in phase])
+
+
+def _aligned(t):
+    """t, or a copy of it if its data does not start on 16 bytes (TMA)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _prepare(x, w1, b1, w2, b2, w3, b3, wd, bd, dilation):
+    """Check a CUDA call and allocate its output and the scratch y1 and y2.
+    Returns ``(fn, args, held, out)``: the C entry point, its arguments but
+    the phase mask and the stream, and every tensor whose raw pointer is
+    in ``args`` (the scratch, the output and any aligned or cast copies),
+    which must stay allocated until the launches are enqueued."""
     cin, cmid, cout = _check_shapes(x, w1, b1, w2, b2, w3, b3, wd, bd)
-    if x.device.type == "cpu":
-        return fused_bottleneck_plain(x, w1, b1, w2, b2, w3, b3, wd, bd,
-                                      dilation=dilation)
     if x.device.type != "cuda":
-        raise RuntimeError(f"fused_bottleneck runs on cpu or cuda, not "
+        raise RuntimeError(f"fused_bottleneck kernel runs on cuda, not "
                            f"{x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_bottleneck kernel takes float32 or "
@@ -184,34 +202,93 @@ def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, *,
         raise ValueError("fused_bottleneck kernel takes a contiguous NHWC "
                          "input")
     d = int(dilation)
-    if fused_block_tile(cin, cmid, cout, d) is None:
+    if fused_block_tile(cin, cmid, cout, d, x.element_size()) is None:
         raise ValueError(f"fused_bottleneck kernel cannot take Cin={cin}, "
-                         f"Cmid={cmid}, Cout={cout}, dilation={d}")
+                         f"Cmid={cmid}, Cout={cout}, dilation={d} in "
+                         f"{x.dtype}")
     weights = [w1, w2, w3] + ([wd] if wd is not None else [])
     biases = [b1, b2, b3] + ([bd] if bd is not None else [])
     for t in weights + biases:
         if t.device != x.device:
             raise RuntimeError(f"fused_bottleneck: a weight lies on "
                                f"{t.device}, the input on {x.device}")
-    weights = [t.to(x.dtype).contiguous() for t in weights]
-    biases = [t.float().contiguous() for t in biases]
+    weights = [_aligned(t.to(x.dtype).contiguous()) for t in weights]
+    biases = [_aligned(t.float().contiguous()) for t in biases]
     if wd is None:
         weights.append(None)
         biases.append(None)
     w1c, w2c, w3c, wdc = weights
     b1c, b2c, b3c, bdc = biases
+    x = _aligned(x)
     n, h, w, _ = x.shape
-    lib = _library()
-    with torch.cuda.device(x.device):
-        out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        ptrs = [None if t is None else t.data_ptr()
-                for t in (x, w1c, b1c, w2c, b2c, w3c, b3c, wdc, bdc, out)]
-        err = lib.fused_bottleneck(_DTYPES[x.dtype], *ptrs, n, h, w, cin,
-                                   cmid, cout, d, stream)
+    dev = x.device
+    y1 = torch.empty((n, h, w, cmid), dtype=x.dtype, device=dev)
+    y2 = torch.empty_like(y1)
+    out = torch.empty((n, h, w, cout), dtype=x.dtype, device=dev)
+    args = [_DTYPES[x.dtype]]
+    args += [None if t is None else t.data_ptr() for t in
+             (x, w1c, b1c, w2c, b2c, w3c, b3c, wdc, bdc, y1, y2, out)]
+    args += [n, h, w, cin, cmid, cout, d,
+             _plan_c(n, h, w, cmid, cout, _sms(dev.index))]
+    held = [t for t in (x, *weights, *biases, y1, y2, out) if t is not None]
+    return _library().fused_bottleneck, args, held, out
+
+
+def _launch(fn, args, dev, phases, stream):
+    """Launch the phases of the bit mask on ``stream`` (a cudaStream_t)."""
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, phases, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, phases, stream)
     if err != 0:
-        raise RuntimeError(f"fused_bottleneck kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"fused_bottleneck kernel launch failed: "
+                           f"CUDA error {err}")
+
+
+def fused_bottleneck_launcher(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None,
+                              *, dilation: int = 1):
+    """Check a CUDA call, allocate its output and the scratch y1 and y2,
+    and return ``(launch, out)``: ``launch(phases=7)`` launches the phases
+    of the bit mask (1 conv1, 2 conv2, 4 conv3 + skip) on the current
+    stream and raises if one fails. A timing harness may launch one phase
+    at a time, at any later point: the kernel gets raw pointers, so
+    ``launch`` holds every tensor they point into for as long as it lives,
+    and marks them used on a stream other than the one they were
+    allocated on."""
+    fn, args, held, out = _prepare(x, w1, b1, w2, b2, w3, b3, wd, bd,
+                                   dilation)
+    dev = out.device
+    home = torch.cuda.current_stream(dev)
+
+    def launch(phases: int = 7):
+        stream = torch.cuda.current_stream(dev)
+        if stream != home:
+            for t in held:
+                t.record_stream(stream)
+        _launch(fn, args, dev, phases, stream.cuda_stream)
+
+    return launch, out
+
+
+def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, *,
+                     dilation: int = 1):
+    """Inference bottleneck on an NHWC batch; see the module note.
+
+    CPU tensors take ``fused_bottleneck_plain``. CUDA tensors launch the
+    kernel's three phases (float32 or bfloat16, contiguous input, the whole
+    batch in each launch), or raise where the kernel cannot take them.
+    """
+    if x.device.type == "cpu":
+        _check_shapes(x, w1, b1, w2, b2, w3, b3, wd, bd)
+        return fused_bottleneck_plain(x, w1, b1, w2, b2, w3, b3, wd, bd,
+                                      dilation=dilation)
+    fn, args, held, out = _prepare(x, w1, b1, w2, b2, w3, b3, wd, bd,
+                                   dilation)
+    # ``held`` is freed on return, after the launches are enqueued on the
+    # stream it was allocated on, so only later work there can reuse it
+    _launch(fn, args, out.device, 7,
+            torch.cuda.current_stream(out.device).cuda_stream)
     fused_bottleneck.launches += 1
     return out
 

@@ -19,9 +19,8 @@ import torch
 
 from open_world_semantic_segmentation_tpu_torch.metrics.anom_device import (
     ood_measures_from_maps)
-from open_world_semantic_segmentation_tpu_torch.ops import fused_block
 from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
-    fused_bottleneck, fused_bottleneck_plain)
+    fused_bottleneck, fused_bottleneck_launcher, fused_bottleneck_plain)
 from open_world_semantic_segmentation_tpu_torch.ops.knn import (
     knn_cosine, knn_cosine_plain)
 
@@ -70,12 +69,21 @@ def test_knn_kernel_rejects_what_it_cannot_take(cuda):
 
 
 def _block_inputs(n, h, w, cin, cmid, cout, d, down, seed=0):
+    """Inputs and weights of std 0.3 (``tests/test_pallas_block.py``'s
+    scale) up to 256 input channels. Past that, weights of std
+    sqrt(1 / fan_in), as ``chip_smoke.py`` makes them: at std 0.3 a
+    2048-channel block's sums reach |100|, where the float32 tolerance of
+    1e-4 (stated for values of order 1) would hold the summation order of
+    4608-term sums to 1e-6 of their size."""
     rng = np.random.default_rng(seed)
-    mk = lambda *s: torch.from_numpy(
-        (rng.standard_normal(s) * 0.3).astype(np.float32))
-    ws = [mk(cin, cmid), mk(cmid), mk(3, 3, cmid, cmid) * 0.2, mk(cmid),
-          mk(cmid, cout), mk(cout)]
-    ws += [mk(cin, cout), mk(cout)] if down else [None, None]
+    deep = max(cin, cmid) > 256
+    scale = lambda fan: fan ** -0.5 if deep else 0.3
+    mk = lambda *s, fan=1 / 0.09: torch.from_numpy(
+        (rng.standard_normal(s) * scale(fan)).astype(np.float32))
+    ws = [mk(cin, cmid, fan=cin), mk(cmid),
+          mk(3, 3, cmid, cmid, fan=9 * cmid) * (1 if deep else 0.2),
+          mk(cmid), mk(cmid, cout, fan=cmid), mk(cout)]
+    ws += [mk(cin, cout, fan=cin), mk(cout)] if down else [None, None]
     return mk(n, h, w, cin), ws
 
 
@@ -100,6 +108,9 @@ def no_tf32():
     (1, 17, 19, 16, 40, 16, 4, False),     # dilation 4, Cmid not 32k
     (1, 5, 3, 96, 64, 128, 4, True),       # map smaller than the halo
     (1, 20, 30, 256, 64, 256, 1, False),   # layer1 channels
+    (2, 38, 67, 2048, 512, 2048, 4, False),  # layer4, 304x536, batch 2
+    (1, 23, 37, 2048, 512, 2048, 8, False),  # dilation 8
+    (1, 19, 29, 1024, 1024, 2048, 2, True),  # Cmid 1024, downsample
 ])
 def test_fused_kernel_matches_plain(cuda, no_tf32, dtype, shape):
     n, h, w, cin, cmid, cout, d, down = shape
@@ -111,6 +122,7 @@ def test_fused_kernel_matches_plain(cuda, no_tf32, dtype, shape):
     torch.cuda.synchronize()
     assert fused_bottleneck.launches == before + 1
     assert got.dtype == dtype and got.shape == (n, h, w, cout)
+    assert torch.isfinite(got).all()
     want = fused_bottleneck_plain(x, *ws, dilation=d)
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     np.testing.assert_allclose(got.float().cpu().numpy(),
@@ -129,24 +141,43 @@ def test_fused_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fused_bottleneck(x.transpose(1, 2), *ws)
     with pytest.raises(ValueError, match="cannot take"):
-        fused_bottleneck(x, *ws, dilation=5)
+        fused_bottleneck(x, *ws, dilation=0)
+    xo, wo = _block_inputs(1, 8, 8, 36, 16, 36, 1, False)   # 72-byte rows
+    with pytest.raises(ValueError, match="cannot take"):
+        fused_bottleneck(xo.to(cuda, torch.bfloat16),
+                         *[None if t is None else t.to(cuda) for t in wo])
     with pytest.raises(RuntimeError, match="lies on cpu"):
         fused_bottleneck(x, ws[0].cpu(), *ws[1:])
     assert fused_bottleneck.launches == before
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cmid,dilation", [(64, 1), (128, 1), (256, 2),
-                                           (512, 2), (512, 4), (40, 3)])
-def test_shared_memory_mirror_matches_kernel(cuda, cmid, dilation):
-    """The predicate's shared-memory count is the kernel's own."""
-    import ctypes
-
-    lib = fused_block._library()
-    lib.fused_bottleneck_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.fused_bottleneck_smem_bytes.restype = ctypes.c_size_t
-    assert (lib.fused_bottleneck_smem_bytes(cmid, dilation)
-            == fused_block.fused_block_smem_bytes(cmid, dilation))
+@pytest.mark.parametrize("side_stream", [False, True])
+def test_fused_launcher_holds_its_tensors(cuda, side_stream):
+    """``launch`` may run long after the launcher returned: the scratch y1
+    and y2 and the launcher's bf16 copies of float32 weights stay
+    allocated until then, so tensors of their sizes allocated in between
+    are left alone, on the allocating stream or another."""
+    n, h, w, cin, cmid, cout, d = 1, 19, 29, 64, 32, 128, 2
+    x, ws = _block_inputs(n, h, w, cin, cmid, cout, d, True)
+    x = x.to(cuda, torch.bfloat16)
+    ws = [t.to(cuda) for t in ws]          # float32: the launcher casts
+    launch, out = fused_bottleneck_launcher(x, *ws, dilation=d)
+    shapes = [(n, h, w, cmid)] * 2 + [t.shape for t in ws if t.dim() > 1]
+    others = [torch.full(s, 3.0, dtype=torch.bfloat16, device=cuda)
+              for s in shapes for _ in range(4)]
+    stream = (torch.cuda.Stream(cuda) if side_stream
+              else torch.cuda.current_stream(cuda))
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        launch()
+    del launch
+    torch.cuda.synchronize()
+    assert all(bool((t == 3).all()) for t in others)
+    want = fused_bottleneck_plain(x, *ws, dilation=d)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=5e-2,
+                               atol=5e-2)
 
 
 @pytest.mark.cuda

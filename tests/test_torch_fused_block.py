@@ -20,7 +20,8 @@ import torch
 
 from open_world_semantic_segmentation_tpu.ops import pallas_block
 from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
-    fold_convbn, fused_block_tile, fused_bottleneck, fused_bottleneck_plain)
+    BN_CHOICES, CTAS_PER_SM, PATCH_H, PATCH_W, fold_convbn,
+    fused_block_tile, fused_bottleneck, fused_bottleneck_plain, launch_plan)
 from test_pallas_block import ref_block
 
 CASES = {
@@ -139,11 +140,55 @@ def test_fold_convbn_matches_jax():
     ((1024, 256, 1024, 2), True),   # layer3.1-5
     ((1024, 512, 2048, 2), True),   # layer4.0
     ((2048, 512, 2048, 4), True),   # layer4.1-2
-    ((2048, 512, 2048, 8), False),  # halo'd window over 256 pixels
-    ((2048, 1024, 2048, 2), False),  # accumulator over shared memory
+    ((2048, 512, 2048, 8), True),   # layer4 at output stride 4
+    ((2048, 1024, 2048, 2), True),  # a wider bottleneck
+    ((2048, 500, 2048, 4), False),  # Cmid rows of 1000 bytes in bf16
+    ((1024, 256, 1024, 0), False),  # no dilation below 1
 ])
 def test_predicate_at_flagship_geometries(geometry, accepted):
     assert (fused_block_tile(*geometry) is not None) == accepted
+
+
+@pytest.mark.parametrize("channels,itemsize,accepted", [
+    (500, 4, True), (500, 2, False), (42, 4, False), (40, 2, True),
+])
+def test_predicate_row_alignment_per_dtype(channels, itemsize, accepted):
+    """Rows must be 16-byte aligned: 4 float32 or 8 bf16 channels."""
+    got = fused_block_tile(channels, channels, channels, 1, itemsize)
+    assert (got is not None) == accepted
+
+
+@pytest.mark.parametrize("n,h,w,cmid,cout,sms", [
+    (1, 71, 125, 512, 2048, 132),   # layer4 at 568x1000: more tiles than CTAs
+    (1, 71, 125, 512, 2048, 114),   # the same on an H100 PCIe's 114 SMs
+    (2, 38, 67, 256, 1024, 132),    # layer3 at 304x536, batch 2
+    (2, 11, 3, 40, 24, 132),        # ragged, channels past one tile
+    (1, 5, 7, 64, 256, 132),        # a map smaller than one patch
+    (3, 1, 1, 8, 8, 132),           # single pixels
+])
+def test_launch_plan_covers_every_output_once(n, h, w, cmid, cout, sms):
+    """Walk each phase's grid as the persistent kernel does (CTA b takes
+    tiles b, b + grid, ...; tile t is channel tile t % tiles of patch
+    t // tiles, patches in image, row, column order; 8 x 16 pixels by bn
+    channels, clipped to the map and to the channels) and count how often
+    every output element is written."""
+    patches_x = -(-w // PATCH_W)
+    patches_img = -(-h // PATCH_H) * patches_x
+    plan = launch_plan(n, h, w, cmid, cout, sms)
+    for (bn, tiles, grid), channels in zip(plan, (cmid, cmid, cout)):
+        assert bn in BN_CHOICES and bn <= -(-channels // 64) * 64
+        assert tiles * bn >= channels > (tiles - 1) * bn
+        total = n * patches_img * tiles
+        assert grid == min(total, sms * CTAS_PER_SM)
+        hits = np.zeros((n, h, w, channels), np.int32)
+        for b in range(grid):
+            for t in range(b, total, grid):
+                patch, nt = divmod(t, tiles)
+                img, p = divmod(patch, patches_img)
+                y0, x0 = p // patches_x * PATCH_H, p % patches_x * PATCH_W
+                hits[img, y0:y0 + PATCH_H, x0:x0 + PATCH_W,
+                     nt * bn:(nt + 1) * bn] += 1
+        assert (hits == 1).all()
 
 
 def test_wrapper_rejects_bad_shapes():
