@@ -12,7 +12,10 @@ Phases (any failure exits non-zero and prints no result):
 3. kernel phase: each kernel's wrapper against its plain PyTorch version on
    the card at the eval path's shapes, then timed with CUDA events beside
    its plain version, its bound and, where one exists, a library yardstick:
-   knn_cosine in float32 (atol 2e-5); fused_bottleneck at the seven block
+   knn_cosine on raw bf16 and float32 features (atol 2e-5; constant maps
+   against the exact neighbour counts, scattered zero pixels, neighbor_size
+   1), timed in both, the dtype the knn run hands it reported as the
+   path's; fused_bottleneck at the seven block
    geometries of resnet50dilated at the largest pyramid level, at ragged
    small shapes and at batch 2, dilation 8 and Cmid 1024, in bf16
    (tolerance 5e-2) and float32 with TF32 off (1e-4), timed in bf16 beside
@@ -134,9 +137,10 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def knn_cosine_bound_ms(h, w, c):
+def knn_cosine_bound_ms(h, w, c, itemsize=4):
     """(operations ms, bytes ms): the least time for the knn map of an
-    (h, w, c) float32 feature map, from its minimal work.
+    (h, w, c) feature map of ``itemsize``-byte floats, from its minimal
+    work.
 
     The map is linear in the neighbours, out[p] = f_p . S_p with S_p the
     sum of the normalised neighbours, and S_p is two offset k x k box sums
@@ -144,10 +148,11 @@ def knn_cosine_bound_ms(h, w, c):
     channel: normalisation 3 flops (square, add, scale), a separable sliding
     box sum 4 (add and subtract along W, then along H), the two boxes
     combined 1, the dot product 2; per pixel 3 more (sqrt, max,
-    reciprocal). Bytes: the features read once and the map written once.
+    reciprocal). Bytes: the features read once and the float32 map written
+    once.
     """
     ops = h * w * (10 * c + 3)
-    nbytes = 4 * h * w * c + 4 * h * w
+    nbytes = itemsize * h * w * c + 4 * h * w
     return ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
@@ -180,61 +185,101 @@ def build_kernels():
 
 
 def kernel_phase():
-    """knn_cosine (the CUDA kernel) vs knn_cosine_plain on the card."""
+    """knn_cosine (the CUDA kernel) vs knn_cosine_plain on the card, on raw
+    float32 and bf16 features; then timed at the eval shape in both."""
     import torch
 
     from open_world_semantic_segmentation_tpu_torch.ops import knn
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     max_err = 0.0
-    for shape, ns in (((720, 1280, 13), 9), ((45, 80, 13), 9),
-                      ((9, 17, 4), 9), ((64, 128, 19), 3)):
-        ft = torch.randn(shape, generator=gen, device="cuda")
-        got = knn.knn_cosine(ft, ns)
-        torch.cuda.synchronize()
-        want = knn.knn_cosine_plain(ft, ns)
-        err = (got - want).abs().max().item()
-        log(f"knn_cosine {shape} neighbor_size {ns}: max |err| {err:.3g}")
-        if not err <= KNN_ATOL:
-            raise AssertionError(f"knn_cosine disagrees at {shape}: {err}")
-        max_err = max(max_err, err)
-    zero = knn.knn_cosine(torch.zeros((720, 1280, 13), device="cuda"))
-    if torch.count_nonzero(zero).item() != 0:
-        raise AssertionError("knn_cosine of zero features is not 0")
 
-    # timing at the eval path's shape
+    def check(name, got, want):
+        nonlocal max_err
+        err = (got - want).abs().max().item()
+        log(f"knn_cosine {name}: max |err| {err:.3g}")
+        if not err <= KNN_ATOL or not torch.isfinite(got).all():
+            raise AssertionError(f"knn_cosine disagrees: {name}: {err}")
+        max_err = max(max_err, err)
+
+    for dname, dtype in dtypes.items():
+        for shape, ns in (((720, 1280, 13), 9), ((45, 80, 13), 9),
+                          ((9, 17, 4), 9), ((64, 128, 19), 3),
+                          ((65, 95, 13), 9), ((40, 50, 13), 1)):
+            ft = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            got = knn.knn_cosine(ft, ns)
+            torch.cuda.synchronize()
+            check(f"{dname} {shape} neighbor_size {ns}", got,
+                  knn.knn_cosine_plain(ft, ns))
+        # every pixel the same vector: the exact answer is the count of
+        # in-image neighbours
+        for shape, ns in (((720, 1280, 13), 9), ((20, 30, 13), 9),
+                          ((12, 17, 7), 3)):
+            v = torch.randn(shape[-1], generator=gen, device="cuda") * 3
+            got = knn.knn_cosine(v.to(dtype).expand(shape), ns)
+            check(f"{dname} constant map {shape} neighbor_size {ns} vs the "
+                  f"neighbour counts", got.cpu(),
+                  knn.knn_neighbour_counts(shape[0], shape[1], ns))
+        # zero pixels scattered among non-zero ones score 0 and add nothing
+        ft = torch.randn((720, 1280, 13), generator=gen, device="cuda")
+        ft[torch.rand((720, 1280), generator=gen, device="cuda") < 0.05] = 0
+        ft = ft.to(dtype)
+        got = knn.knn_cosine(ft)
+        check(f"{dname} 5% zero pixels (720, 1280, 13)", got,
+              knn.knn_cosine_plain(ft))
+        if torch.count_nonzero(got[(ft == 0).all(-1)]).item() != 0:
+            raise AssertionError("knn_cosine of a zero pixel is not 0")
+        zero = knn.knn_cosine(torch.zeros((720, 1280, 13), device="cuda",
+                                          dtype=dtype))
+        if torch.count_nonzero(zero).item() != 0:
+            raise AssertionError("knn_cosine of zero features is not 0")
+
+    # timing at the eval path's shape: the wrapper and the raw launch
     h, w, c = 720, 1280, 13
     halo = 8
-    ft = torch.randn((h, w, c), generator=gen, device="cuda")
-    fn = knn.normalize_features(ft).contiguous()
-    out = torch.empty((h, w), device="cuda")
     lib = knn._library()
     stream = torch.cuda.current_stream().cuda_stream
-    if lib.knn_cosine_f32(fn.data_ptr(), out.data_ptr(), h, w, c, halo,
-                          stream) != 0:
-        raise RuntimeError("knn_cosine_f32 launch failed")
-    ms = cuda_time_ms(lambda: knn.knn_cosine(ft))
-    kernel_ms = cuda_time_ms(lambda: lib.knn_cosine_f32(
-        fn.data_ptr(), out.data_ptr(), h, w, c, halo, stream))
-    plain_ms = cuda_time_ms(lambda: knn.knn_cosine_plain(ft), iters=5)
-    t_ops, t_bytes = knn_cosine_bound_ms(h, w, c)
-    return {
-        "name": "knn_cosine",
-        "route": "cuda",
-        "source": "open_world_semantic_segmentation_tpu_torch/csrc/"
-                  "knn_cosine.cu",
-        "replaces": "open_world_semantic_segmentation_tpu/ops/"
-                    "pallas_knn.py:87",
-        "launches": None,                       # filled from the main path
-        "max_abs_err": max_err,
-        "ms": ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,   # no single PyTorch call computes this map
-        "shape": [h, w, c],
-    }
+    out = torch.empty((h, w), device="cuda")
+    times = {}
+    for dname, dtype in dtypes.items():
+        ft = torch.randn((h, w, c), generator=gen, device="cuda").to(dtype)
+        size = ft.element_size()
+
+        def raw(ft=ft, size=size):
+            if lib.knn_cosine(ft.data_ptr(), size, out.data_ptr(), h, w, c,
+                              halo, 1e-8, stream) != 0:
+                raise RuntimeError("knn_cosine launch failed")
+
+        raw()
+        t_ops, t_bytes = knn_cosine_bound_ms(h, w, c, size)
+        times[dname] = {
+            "ms": cuda_time_ms(lambda ft=ft: knn.knn_cosine(ft)),
+            "kernel_ms": cuda_time_ms(raw),
+            "plain_ms": cuda_time_ms(lambda ft=ft: knn.knn_cosine_plain(ft),
+                                     iters=5),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        }
+        log(f"knn_cosine {dname} {[h, w, c]}: " + json.dumps(times[dname]))
+    # ms, kernel_ms, plain_ms and the bound are filled in from the dtype
+    # that the knn run hands the kernel (``path_dtype``)
+    return {"name": "knn_cosine",
+            "route": "cuda",
+            "source": "open_world_semantic_segmentation_tpu_torch/csrc/"
+                      "knn_cosine.cu",
+            "replaces": "open_world_semantic_segmentation_tpu/ops/"
+                        "pallas_knn.py:87",
+            "launches": None,                     # filled from the main path
+            "max_abs_err": max_err,
+            "library_ms": None,  # no single PyTorch call computes this map
+            "shape": [h, w, c],
+            "by_dtype": times}
+
+
+def set_path_dtype(row, dtype):
+    """The knn row's times and bound at the dtype the eval path uses."""
+    row.update(row["by_dtype"][dtype], path_dtype=dtype)
 
 
 def _block_inputs(gen, n, h, w, cin, cmid, cout, down, dtype):
@@ -471,6 +516,7 @@ def slice_phase(root):
     from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
         fused_bottleneck)
     from open_world_semantic_segmentation_tpu_torch.ops.knn import knn_cosine
+    from open_world_semantic_segmentation_tpu_torch.openset import scoring
 
     odgt = write_street_tree(root, N_IMAGES, FULL_SIZE, SEED)
     cfg = load_config("configs/test_ood_street.yaml", [
@@ -501,12 +547,23 @@ def slice_phase(root):
     kernels = {"knn_cosine": knn_cosine, "fused_bottleneck": fused_bottleneck}
     summaries = {}
     launches = {}
+    # the dtypes of the features the eval hands the knn kernel
+    knn_dtypes = set()
+
+    def knn_spy(ft, *args, **kwargs):
+        knn_dtypes.add(str(ft.dtype).split(".")[-1])
+        return knn_cosine(ft, *args, **kwargs)
+
     for run, (method, kw, want) in runs.items():
         cfg.OOD.ood = method
         for fn in kernels.values():
             fn.launches = 0
-        result = eval_ood.main(cfg, torch.bfloat16, batch_images=batch,
-                               device=DEVICE, **kw)
+        scoring.knn_cosine = knn_spy
+        try:
+            result = eval_ood.main(cfg, torch.bfloat16, batch_images=batch,
+                                   device=DEVICE, **kw)
+        finally:
+            scoring.knn_cosine = knn_cosine
         launches[run] = {k: fn.launches for k, fn in kernels.items()}
         n = result["images"]
         summary = {k: result[k] for k in ("mean_iou", "accuracy", "auroc",
@@ -531,6 +588,10 @@ def slice_phase(root):
             raise AssertionError(f"{run}: launches {launches[run]}, want "
                                  f"{want}")
         summaries[run] = summary
+    log(f"knn_cosine input dtypes on the eval path: {sorted(knn_dtypes)}")
+    if len(knn_dtypes) != 1:
+        raise AssertionError(f"knn input dtypes {knn_dtypes}")
+    summaries["knn_input_dtype"] = knn_dtypes.pop()
     log(f"forward s/img: default {summaries['dissum']['forward_s_per_img']}"
         f", fused_blocks {summaries['dissum_fused']['forward_s_per_img']}")
     for key in ("auroc", "aupr", "fpr"):
@@ -739,6 +800,7 @@ def main():
     # launches on the main path: knn_cosine in the knn run, fused_bottleneck
     # in the fused run (the runs that take each kernel's path)
     kernels[0]["launches"] = launches["knn"]["knn_cosine"]
+    set_path_dtype(kernels[0], summaries.pop("knn_input_dtype"))
     kernels[1]["launches"] = launches["dissum_fused"]["fused_bottleneck"]
     log(f"gpu: {gpu}; eval summaries: " + json.dumps(summaries))
     log(f"total {time.perf_counter() - tic:.1f} s")

@@ -12,12 +12,14 @@ with out-of-image neighbours counting as zero (k = ``neighbor_size``).
   slices (one pass over the map per shift and direction).
 - ``knn_cosine``: the wrapper. A CPU tensor goes to the plain version; a
   CUDA tensor goes to the hand-written kernel of ``csrc/knn_cosine.cu`` or
-  raises. ``knn_cosine.launches`` counts kernel launches.
+  raises. The kernel reads the raw float32 or bf16 features and normalises
+  them itself. ``knn_cosine.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -49,17 +51,32 @@ def knn_cosine_plain(ft: torch.Tensor, neighbor_size: int = 9,
     return out
 
 
+def knn_neighbour_counts(h: int, w: int, neighbor_size: int = 9):
+    """(h, w) float32: how many of each pixel's 2 (k - 1)^2 diagonal
+    neighbours lie in the image, which is the map of a constant feature
+    map."""
+    halo = neighbor_size - 1
+    y = torch.arange(h)[:, None]
+    x = torch.arange(w)[None, :]
+    fwd = (halo - (y + halo - h + 1).clamp(min=0)).clamp(min=0) * (
+        halo - (x + halo - w + 1).clamp(min=0)).clamp(min=0)
+    bwd = y.clamp(max=halo) * x.clamp(max=halo)
+    return (fwd + bwd).float()
+
+
+@functools.cache
 def _library():
     from ._build import load
 
     lib = load(_SOURCE)
-    lib.knn_cosine_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_int, ctypes.c_void_p]
-    lib.knn_cosine_f32.restype = ctypes.c_int
-    lib.knn_cosine_max_channels.argtypes = []
-    lib.knn_cosine_max_channels.restype = ctypes.c_int
-    lib.knn_cosine_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.knn_cosine.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    lib.knn_cosine.restype = ctypes.c_int
+    for name in ("knn_cosine_max_channels", "knn_cosine_max_halo"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    lib.knn_cosine_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.knn_cosine_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -67,8 +84,9 @@ def _library():
 def knn_cosine(ft: torch.Tensor, neighbor_size: int = 9, eps: float = 1e-8):
     """(H, W, C) float -> (H, W) float32 cosine-sum map.
 
-    CPU tensors take ``knn_cosine_plain``; CUDA tensors launch the kernel
-    (normalisation stays a plain PyTorch op before it).
+    CPU tensors take ``knn_cosine_plain``; CUDA tensors launch the kernel on
+    the raw features (float32 or bf16 as given, any other float type cast
+    to float32), which normalises them itself.
     """
     if ft.dim() != 3:
         raise ValueError(f"knn_cosine takes (H, W, C) features, got shape "
@@ -88,15 +106,21 @@ def knn_cosine(ft: torch.Tensor, neighbor_size: int = 9, eps: float = 1e-8):
     if c > lib.knn_cosine_max_channels():
         raise ValueError(f"knn_cosine kernel takes at most "
                          f"{lib.knn_cosine_max_channels()} channels, got {c}")
-    if lib.knn_cosine_smem_bytes(c, halo) > _MAX_SMEM:
+    if halo > lib.knn_cosine_max_halo():
+        raise ValueError(f"knn_cosine kernel takes neighbor_size at most "
+                         f"{lib.knn_cosine_max_halo() + 1}, got "
+                         f"{neighbor_size}")
+    if ft.dtype not in (torch.float32, torch.bfloat16):
+        ft = ft.float()
+    if lib.knn_cosine_smem_bytes(c, halo, ft.element_size()) > _MAX_SMEM:
         raise ValueError(f"knn_cosine window for C={c}, neighbor_size="
                          f"{neighbor_size} exceeds shared memory")
+    ft = ft.contiguous()
     with torch.cuda.device(ft.device):
-        fn = normalize_features(ft, eps).contiguous()
         out = torch.empty((h, w), dtype=torch.float32, device=ft.device)
         stream = torch.cuda.current_stream(ft.device).cuda_stream
-        err = lib.knn_cosine_f32(fn.data_ptr(), out.data_ptr(), h, w, c,
-                                 halo, stream)
+        err = lib.knn_cosine(ft.data_ptr(), ft.element_size(),
+                             out.data_ptr(), h, w, c, halo, eps, stream)
     if err != 0:
         raise RuntimeError(f"knn_cosine kernel launch failed: CUDA error "
                            f"{err}")

@@ -22,7 +22,7 @@ from open_world_semantic_segmentation_tpu_torch.metrics.anom_device import (
 from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
     fused_bottleneck, fused_bottleneck_launcher, fused_bottleneck_plain)
 from open_world_semantic_segmentation_tpu_torch.ops.knn import (
-    knn_cosine, knn_cosine_plain)
+    knn_cosine, knn_cosine_plain, knn_neighbour_counts)
 
 ATOL = 2e-5
 
@@ -34,20 +34,42 @@ def cuda():
     return torch.device("cuda")
 
 
+# the kernel's tiles are 32 x 32 pixels in bf16 and 16 x 32 in float32:
+# (65, 95) and (63, 97) put H and W one past and one short of a multiple
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,neighbor_size", [
     ((45, 80, 13), 9), ((9, 17, 4), 9), ((64, 128, 19), 3),
     ((720, 1280, 13), 9), ((33, 70, 32), 9), ((5, 3, 1), 2),
+    ((65, 95, 13), 9), ((63, 97, 13), 9), ((40, 50, 13), 1),
 ])
-def test_knn_kernel_matches_plain(cuda, shape, neighbor_size):
-    ft = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        shape).astype(np.float32)).to(cuda)
+def test_knn_kernel_matches_plain(cuda, dtype, shape, neighbor_size):
+    rng = np.random.default_rng(0)
+    ft = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    ft[torch.from_numpy(rng.random(shape[:2]) < 0.05)] = 0.0
+    ft = ft.to(cuda, dtype)
     before = knn_cosine.launches
     got = knn_cosine(ft, neighbor_size)
     torch.cuda.synchronize()
     assert knn_cosine.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == shape[:2]
     want = knn_cosine_plain(ft, neighbor_size)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,neighbor_size", [
+    ((720, 1280, 13), 9), ((9, 13, 13), 9), ((65, 95, 32), 9),
+    ((12, 17, 7), 3), ((20, 30, 5), 5), ((20, 30, 5), 1)])
+def test_knn_kernel_constant_map_gives_neighbour_counts(cuda, dtype, shape,
+                                                        neighbor_size):
+    v = np.random.default_rng(1).standard_normal(shape[-1]) * 3.0
+    ft = torch.from_numpy(v.astype(np.float32)).to(cuda, dtype)
+    got = knn_cosine(ft.expand(shape), neighbor_size)
+    want = knn_neighbour_counts(shape[0], shape[1], neighbor_size)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
                                atol=ATOL)
 
 
@@ -58,14 +80,24 @@ def test_knn_kernel_zero_and_bf16_input(cuda):
     ft = torch.randn((40, 50, 13), device=cuda).bfloat16()
     np.testing.assert_allclose(knn_cosine(ft).cpu().numpy(),
                                knn_cosine_plain(ft).cpu().numpy(), atol=ATOL)
+    # a zero pixel contributes nothing and scores 0
+    ft[7, 9] = 0
+    got = knn_cosine(ft)
+    assert got[7, 9].item() == 0.0
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               knn_cosine_plain(ft).cpu().numpy(), atol=ATOL)
 
 
 @pytest.mark.cuda
 def test_knn_kernel_rejects_what_it_cannot_take(cuda):
+    before = knn_cosine.launches
     with pytest.raises(ValueError, match="at most"):
         knn_cosine(torch.zeros((8, 8, 33), device=cuda))
-    with pytest.raises(ValueError, match="shared memory"):
+    # the halo sums are unrolled for neighbor_size up to 9; every window
+    # up to that size and 32 channels fits shared memory
+    with pytest.raises(ValueError, match="neighbor_size at most 9"):
         knn_cosine(torch.zeros((8, 8, 32), device=cuda), neighbor_size=12)
+    assert knn_cosine.launches == before
 
 
 def _block_inputs(n, h, w, cin, cmid, cout, d, down, seed=0):

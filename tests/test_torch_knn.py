@@ -18,7 +18,7 @@ from open_world_semantic_segmentation_tpu.ops import resize as jresize
 from open_world_semantic_segmentation_tpu.ops.pallas_knn import (
     knn_cosine_pallas)
 from open_world_semantic_segmentation_tpu_torch.ops.knn import (
-    knn_cosine, knn_cosine_plain)
+    knn_cosine, knn_cosine_plain, knn_neighbour_counts)
 from open_world_semantic_segmentation_tpu_torch.openset import scoring
 
 ATOL = 2e-5
@@ -82,6 +82,49 @@ def test_knn_plain_matches_pallas_interpret(shape):
                              interpret=True)
     got = knn_cosine_plain(torch.from_numpy(ft), 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def _counts_brute_force(h, w, neighbor_size):
+    """numpy: the in-image offsets among the 2 (k - 1)^2 of each pixel."""
+    out = np.zeros((h, w), np.float32)
+    for y in range(h):
+        for x in range(w):
+            for dh in range(1, neighbor_size):
+                for dw in range(1, neighbor_size):
+                    out[y, x] += (y + dh < h and x + dw < w) + (
+                        y - dh >= 0 and x - dw >= 0)
+    return out
+
+
+def _constant_map(shape, seed):
+    """Every pixel the same random vector: each cosine is 1, so the map is
+    the count of in-image neighbours."""
+    v = np.random.default_rng(seed).standard_normal(shape[-1]) * 3.0
+    return np.broadcast_to(v.astype(np.float32), shape).copy()
+
+
+# maps smaller and larger than the 2 (k - 1) rows and columns a pixel
+# needs to have every neighbour inside: corners, edges and interior
+@pytest.mark.parametrize("shape,neighbor_size", [
+    ((9, 13, 13), 9), ((20, 40, 13), 9), ((17, 5, 4), 9),
+    ((3, 3, 7), 3), ((12, 17, 7), 3)])
+def test_knn_plain_gives_neighbour_counts_on_constant_map(shape,
+                                                         neighbor_size):
+    counts = _counts_brute_force(shape[0], shape[1], neighbor_size)
+    np.testing.assert_array_equal(
+        knn_neighbour_counts(shape[0], shape[1], neighbor_size).numpy(),
+        counts)
+    got = knn_cosine_plain(torch.from_numpy(_constant_map(shape, 9)),
+                           neighbor_size)
+    np.testing.assert_allclose(got.numpy(), counts, rtol=0, atol=ATOL)
+
+
+def test_knn_pallas_interpret_gives_neighbour_counts_on_constant_map():
+    ft = _constant_map((9, 17, 4), 10)
+    got = knn_cosine_pallas(jnp.asarray(ft), neighbor_size=3,
+                            interpret=True)
+    np.testing.assert_allclose(np.asarray(got), _counts_brute_force(9, 17, 3),
+                               rtol=0, atol=ATOL)
 
 
 def test_knn_zero_features_are_zero_cos():
