@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA GPU (H100): kernels and the
-StreetHazards open-set eval, end to end.
+"""Smoke run of the PyTorch port on one CUDA GPU (H100): kernels, the
+StreetHazards open-set eval and DML embedding training, end to end.
 
     python3 chip_smoke.py
 
@@ -15,7 +15,10 @@ Phases (any failure exits non-zero and prints no result):
    knn_cosine on raw bf16 and float32 features (atol 2e-5; constant maps
    against the exact neighbour counts, scattered zero pixels, neighbor_size
    1), timed in both, the dtype the knn run hands it reported as the
-   path's; fused_bottleneck at the seven block
+   path's; its generic path (C above 32 or neighbor_size above 9) at C 64
+   with neighbor_size 11, at the 4096-d PPM concat of 90x160 and at the
+   eval's map with neighbor_size 11, constant maps against the counts,
+   timed at 90x160x4096; fused_bottleneck at the seven block
    geometries of resnet50dilated at the largest pyramid level, at ragged
    small shapes and at batch 2, dilation 8 and Cmid 1024, in bf16
    (tolerance 5e-2) and float32 with TF32 off (1e-4), timed in bf16 beside
@@ -23,7 +26,9 @@ Phases (any failure exits non-zero and prints no result):
    conv2, conv3 + skip) also timed apart;
 4. slice phase: a synthetic StreetHazards tree of 720x1280 images, a
    full-width resnet50dilated + ppm_deepsup_embedding with seeded random
-   weights, ``cli.eval_ood.main`` on cuda in bf16: OOD.ood dissum, knn,
+   weights; the dtype after each decoder module and after the averaging
+   under bf16 autocast (scores and ft must stay bf16, as in the JAX
+   package); ``cli.eval_ood.main`` on cuda in bf16: OOD.ood dissum, knn,
    dissum with ``fused_blocks=True`` and dissum with
    ``device_metrics=True``; launch counts are zeroed just before each run
    and read just after (knn_cosine once per image in the knn run,
@@ -35,9 +40,20 @@ Phases (any failure exits non-zero and prints no result):
    fused, timed alternately six times each, and the routed bottleneck
    modules of both models timed the same way on their inputs at every
    level (medians and every round printed);
-5. device check: one small image through the full-width model in fp32 with
+5. train phase: a synthetic training tree of 96 720x1280 images;
+   ``cli.train_embedding.main`` on cuda in bf16 for 12 steps of the
+   full-width model with configs/train_embedding.yaml (batch 8, short
+   sides 300-600, long side up to 1000), from the slice phase's seeded
+   checkpoint, in epochs of 6 (checkpoints written); every loss finite, no
+   step skipped, no kernel launched; s/step (median after 2 warm-up
+   steps), imgs/s, loader wait s/step, peak memory and each step's shape
+   and time printed; then the epoch-1 checkpoint through
+   ``cli.eval_ood.main`` on 2 images, with finite metrics;
+6. device check: one small image through the full-width model in fp32 with
    TF32 off, on cuda and on the CPU, unfused and fused; the score maps must
-   agree; and the fused route against the unfused one on cuda in bf16.
+   agree; and the fused route against the unfused one on cuda in bf16;
+   then one train step of a narrow twin in fp32 with TF32 off, cuda
+   against the CPU: loss, updated parameters and BN statistics.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.
@@ -106,6 +122,27 @@ BLOCK_RAGGED = (
 )
 N_IMAGES = 16
 FULL_SIZE = (720, 1280)
+# the PPMDeepsup 4096-d concat at feature resolution (the largest level,
+# 720x1280 / 8), which the knn kernel's generic path takes
+GENERIC_KNN_SHAPE = (90, 160, 4096)
+# training: configs/train_embedding.yaml's batch of 8, 12 steps, epochs of 6
+# (one ends and writes its checkpoint), on 96 images (each read once)
+TRAIN_STEPS = 12
+TRAIN_EPOCH_ITERS = 6
+N_TRAIN_IMAGES = 96
+TRAIN_WARMUP = 2
+# the fp32 train-step check, cuda against the CPU on the narrow twin
+# (TF32 off): the loss rtol 1e-4 (convs summed in another order); every
+# parameter after the SGD step rtol 1e-5 plus lr x 2e-2 of its gradient's
+# largest magnitude (float32 rounding of this twin's gradients reaches
+# 1.6e-2 of a tensor's largest magnitude, float32 against float64 on the
+# CPU, where a ReLU input lies within rounding of 0); BN running statistics
+# 1e-4 of the tensor's largest magnitude plus 1e-6 (a running mean is 0.1
+# times a batch mean of activations that cuDNN sums in another order, so
+# its error scales with the activations, not with the mean)
+TRAIN_CHECK_LOSS_RTOL = 1e-4
+TRAIN_CHECK_GRAD_FRAC = 2e-2
+TRAIN_CHECK_BN_TOL = (1e-4, 1e-6)
 SEED = 0
 DEVICE = "cuda"
 
@@ -235,6 +272,41 @@ def kernel_phase():
         if torch.count_nonzero(zero).item() != 0:
             raise AssertionError("knn_cosine of zero features is not 0")
 
+    # the generic path (C above 32 or neighbor_size above 9): the 4096-d
+    # PPM concat at feature resolution, C 64 with neighbor_size 11, the
+    # eval's map with neighbor_size 11; constant maps against the counts
+    for dname, dtype in dtypes.items():
+        for shape, ns in (((40, 56, 64), 11), ((90, 160, 4096), 9),
+                          ((33, 70, 13), 11)):
+            ft = torch.randn(shape, generator=gen, device="cuda")
+            ft[torch.rand(shape[:2], generator=gen, device="cuda") < 0.05] = 0
+            ft = ft.to(dtype)
+            got = knn.knn_cosine(ft, ns)
+            torch.cuda.synchronize()
+            check(f"generic {dname} {shape} neighbor_size {ns}", got,
+                  knn.knn_cosine_plain(ft, ns))
+        for shape, ns in (((30, 40, 64), 11), ((12, 9, 4096), 9)):
+            v = torch.randn(shape[-1], generator=gen, device="cuda") * 3
+            got = knn.knn_cosine(v.to(dtype).expand(shape), ns)
+            check(f"generic {dname} constant map {shape} neighbor_size {ns} "
+                  f"vs the neighbour counts", got.cpu(),
+                  knn.knn_neighbour_counts(shape[0], shape[1], ns))
+    generic = {"shape": list(GENERIC_KNN_SHAPE), "neighbor_size": 9}
+    for dname, dtype in dtypes.items():
+        ft = torch.randn(GENERIC_KNN_SHAPE, generator=gen,
+                         device="cuda").to(dtype)
+        t_ops, t_bytes = knn_cosine_bound_ms(*GENERIC_KNN_SHAPE,
+                                             ft.element_size())
+        generic[dname] = {
+            "ms": cuda_time_ms(lambda ft=ft: knn.knn_cosine(ft), iters=10),
+            "plain_ms": cuda_time_ms(lambda ft=ft: knn.knn_cosine_plain(ft),
+                                     iters=3),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        }
+        log(f"knn_cosine generic {dname} {list(GENERIC_KNN_SHAPE)}: "
+            + json.dumps(generic[dname]))
+
     # timing at the eval path's shape: the wrapper and the raw launch
     h, w, c = 720, 1280, 13
     halo = 8
@@ -274,7 +346,8 @@ def kernel_phase():
             "max_abs_err": max_err,
             "library_ms": None,  # no single PyTorch call computes this map
             "shape": [h, w, c],
-            "by_dtype": times}
+            "by_dtype": times,
+            "generic": generic}
 
 
 def set_path_dtype(row, dtype):
@@ -432,34 +505,48 @@ def fused_kernel_phase():
 
 
 # ---------------------------------------------------------------------------
-def write_street_tree(root, n, size, seed):
+def write_street_tree(root, n, size, seed, split="test"):
     """StreetHazards-format tree: blocky class-coloured RGB images with
-    noise, L-mode labels 1..13 and an anomaly blob (raw 14)."""
+    noise, L-mode labels 1..13 and an anomaly blob (raw 14) in the test
+    split; ``<split>.odgt`` lists them."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from PIL import Image
 
     rng = np.random.default_rng(seed)
     h, w = size
     palette = rng.integers(0, 255, (15, 3))
     records = []
-    for i in range(n):
-        lab = np.full((h, w), 1 + i % 13, np.uint8)
-        for _ in range(12):
-            r0, c0 = rng.integers(0, h - h // 10), rng.integers(0, w - w // 10)
-            lab[r0:r0 + rng.integers(h // 15, h // 2),
-                c0:c0 + rng.integers(w // 15, w // 2)] = rng.integers(1, 14)
-        bh, bw = h // 4, w // 5
-        r0, c0 = rng.integers(0, h - bh), rng.integers(0, w - bw)
-        lab[r0:r0 + bh, c0:c0 + bw] = 14
-        img = palette[lab] + rng.normal(0, 20, (h, w, 3))
-        img = np.clip(img, 0, 255).astype(np.uint8)
-        ip, ap = f"images/test/t1/{i}.png", f"annotations/test/t1/{i}.png"
-        for p, arr, mode in ((ip, img, "RGB"), (ap, lab, "L")):
-            os.makedirs(os.path.dirname(os.path.join(root, p)),
-                        exist_ok=True)
-            Image.fromarray(arr, mode).save(os.path.join(root, p))
-        records.append({"fpath_img": ip, "fpath_segm": ap, "height": h,
-                        "width": w})
-    odgt = os.path.join(root, "test.odgt")
+    # the images are drawn in order here; PNG encoding releases the GIL,
+    # so the files are written by a pool of threads
+    with ThreadPoolExecutor(8) as pool:
+        saves = []
+        for i in range(n):
+            lab = np.full((h, w), 1 + i % 13, np.uint8)
+            for _ in range(12):
+                r0 = rng.integers(0, h - h // 10)
+                c0 = rng.integers(0, w - w // 10)
+                lab[r0:r0 + rng.integers(h // 15, h // 2),
+                    c0:c0 + rng.integers(w // 15, w // 2)] = \
+                    rng.integers(1, 14)
+            if split == "test":
+                bh, bw = h // 4, w // 5
+                r0, c0 = rng.integers(0, h - bh), rng.integers(0, w - bw)
+                lab[r0:r0 + bh, c0:c0 + bw] = 14
+            img = palette[lab] + rng.normal(0, 20, (h, w, 3))
+            img = np.clip(img, 0, 255).astype(np.uint8)
+            ip = f"images/{split}/t1/{i}.png"
+            ap = f"annotations/{split}/t1/{i}.png"
+            for p, arr, mode in ((ip, img, "RGB"), (ap, lab, "L")):
+                path = os.path.join(root, p)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                saves.append(pool.submit(Image.fromarray(arr, mode).save,
+                                         path, compress_level=1))
+            records.append({"fpath_img": ip, "fpath_segm": ap, "height": h,
+                            "width": w})
+        for save in saves:
+            save.result()
+    odgt = os.path.join(root, f"{split}.odgt")
     with open(odgt, "w") as f:
         f.write(json.dumps(records) + "\n")
     return odgt
@@ -523,6 +610,7 @@ def slice_phase(root):
         "DATASET.root_dataset", root, "DATASET.list_val", odgt])
     enc, dec = write_random_checkpoint(cfg, root, SEED)
     cfg.MODEL.weights_encoder, cfg.MODEL.weights_decoder = enc, dec
+    dtype_flow(cfg)
     routed = fused_route_verdicts(cfg)
 
     # warm-up (CUDA context, cuDNN heuristics, lazy module loading): the
@@ -589,8 +677,9 @@ def slice_phase(root):
                                  f"{want}")
         summaries[run] = summary
     log(f"knn_cosine input dtypes on the eval path: {sorted(knn_dtypes)}")
-    if len(knn_dtypes) != 1:
-        raise AssertionError(f"knn input dtypes {knn_dtypes}")
+    if knn_dtypes != {"bfloat16"}:
+        raise AssertionError(f"knn input dtypes {knn_dtypes}, want bf16 "
+                             "(the model dtype, as in the JAX package)")
     summaries["knn_input_dtype"] = knn_dtypes.pop()
     log(f"forward s/img: default {summaries['dissum']['forward_s_per_img']}"
         f", fused_blocks {summaries['dissum_fused']['forward_s_per_img']}")
@@ -603,6 +692,81 @@ def slice_phase(root):
             raise AssertionError(f"device {key} {dev} vs host {host}")
     summaries["forward_comparison"] = forward_comparison(cfg)
     return summaries, launches, cfg
+
+
+def dtype_flow(cfg):
+    """Under bf16 autocast on the card: the dtype after each module and
+    functional op of the decoder and of scores and ft after the averaging
+    of two scales, for the full-width model on small inputs, and what
+    autocast itself makes of a bf16 sum and a bf16 bilinear interpolation.
+    scores and ft must be bf16, the model dtype, as in the JAX package at
+    dtype=bf16."""
+    import torch
+
+    import torch.nn.functional as F
+
+    from open_world_semantic_segmentation_tpu_torch.cli._common import (
+        build_anomaly_model, init_or_load_variables)
+    from open_world_semantic_segmentation_tpu_torch.models import decoders
+    from open_world_semantic_segmentation_tpu_torch.openset.evaluator import (
+        multi_scale_forward)
+
+    model = init_or_load_variables(cfg, build_anomaly_model(cfg, DEVICE))
+    flow = {}
+
+    def record(name):
+        def hook(_, args, out):
+            outs = out if isinstance(out, (list, tuple)) else [out]
+            flow[name] = sorted({str(o.dtype).split(".")[-1] for o in outs})
+        return hook
+
+    hooks = [m.register_forward_hook(record(name))
+             for name, m in model.decoder.named_modules() if name]
+    # the decoder's functional ops, wrapped where the decoder calls them
+    wrapped = {name: getattr(decoders, name)
+               for name in ("one_hot_center_logits", "bilinear_resize")}
+
+    def spy(name, fn):
+        def run(*args, **kwargs):
+            y = fn(*args, **kwargs)
+            flow.setdefault(name, set()).add(str(y.dtype).split(".")[-1])
+            return y
+        return run
+
+    for name, fn in wrapped.items():
+        setattr(decoders, name, spy(name, fn))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    pyramid = [torch.randn((1, h, w, 3), generator=gen, device=DEVICE)
+               for h, w in ((64, 96), (96, 144))]
+    try:
+        with torch.no_grad(), torch.autocast(DEVICE, dtype=torch.bfloat16):
+            out = model(pyramid[0], seg_size=(96, 144))
+            scores, ft = multi_scale_forward(model, pyramid, (96, 144))
+            # what autocast makes of the two ops the port used to leave to
+            # it: a bf16 sum, and a bf16 bilinear interpolation
+            x = torch.randn((1, 13, 8, 8), generator=gen, device=DEVICE,
+                            dtype=torch.bfloat16)
+            flow["autocast (x * x).sum(-1)"] = str(
+                (x * x).sum(-1).dtype).split(".")[-1]
+            flow["autocast F.interpolate bilinear"] = str(F.interpolate(
+                x, size=(16, 16), mode="bilinear",
+                align_corners=False).dtype).split(".")[-1]
+    finally:
+        for hook in hooks:
+            hook.remove()
+        for name, fn in wrapped.items():
+            setattr(decoders, name, fn)
+    flow.update({k: sorted(v) for k, v in flow.items() if isinstance(v, set)})
+    flow.update({f"decoder out {k}": str(v.dtype).split(".")[-1]
+                 for k, v in out.items()})
+    flow["averaged scores"] = str(scores.dtype).split(".")[-1]
+    flow["averaged ft"] = str(ft.dtype).split(".")[-1]
+    log("bf16 dtype flow: " + json.dumps(flow))
+    want = torch.bfloat16
+    if not (out["scores"].dtype == out["ft"].dtype == scores.dtype
+            == ft.dtype == want):
+        raise AssertionError("scores / ft do not keep the model dtype")
+    return flow
 
 
 def fused_route_verdicts(cfg):
@@ -707,6 +871,188 @@ def forward_comparison(cfg, rounds=6):
 
 
 # ---------------------------------------------------------------------------
+def train_phase(root, weights):
+    """``cli.train_embedding.main`` on cuda in bf16 at full width with
+    configs/train_embedding.yaml as it stands (batch 8, short sides
+    300-600, long side up to 1000), from ``weights`` (the seeded
+    checkpoint with BN statistics from the data), for TRAIN_STEPS steps
+    in epochs of TRAIN_EPOCH_ITERS, every step logged; then the epoch-1
+    checkpoint it wrote through ``cli.eval_ood.main`` on 2 images. Returns
+    the timing and the checks' numbers."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli import (
+        eval_ood, train_embedding)
+    from open_world_semantic_segmentation_tpu_torch.core.config import (
+        load_config)
+    from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
+        fused_bottleneck)
+    from open_world_semantic_segmentation_tpu_torch.ops.knn import knn_cosine
+
+    tree = os.path.join(root, "train")
+    tic = time.perf_counter()
+    odgt = write_street_tree(tree, N_TRAIN_IMAGES, FULL_SIZE, SEED + 1,
+                             split="training")
+    log(f"train tree: {N_TRAIN_IMAGES} images of {FULL_SIZE} in "
+        f"{time.perf_counter() - tic:.1f} s")
+    ckpt = os.path.join(root, "ckpt")
+    cfg = load_config("configs/train_embedding.yaml", [
+        "DATASET.root_dataset", tree, "DATASET.list_train", odgt,
+        "TRAIN.epoch_iters", str(TRAIN_EPOCH_ITERS), "TRAIN.disp_iter", "1",
+        "MODEL.weights_encoder", weights[0],
+        "MODEL.weights_decoder", weights[1], "DIR", ckpt])
+    kernels = {"knn_cosine": knn_cosine, "fused_bottleneck": fused_bottleneck}
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    tic = time.perf_counter()
+    result = train_embedding.main(cfg, torch.bfloat16, max_steps=TRAIN_STEPS,
+                                  device=DEVICE)
+    seconds = time.perf_counter() - tic
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    steps = result["log"]
+    times = [e["seconds"] - (steps[i - 1]["seconds"] if i else 0.0)
+             for i, e in enumerate(steps)]
+    waits = [e["wait"] - (steps[i - 1]["wait"] if i else 0.0)
+             for i, e in enumerate(steps)]
+    seen = set()
+    first_of_shape = []
+    for e in steps:
+        first_of_shape.append(tuple(e["shape"]) not in seen)
+        seen.add(tuple(e["shape"]))
+    steady = times[TRAIN_WARMUP:]
+    batch = cfg.TRAIN.batch_size_per_gpu
+    s_per_step = float(np.median(steady))
+    summary = {
+        "steps": result["steps"], "skipped": result["skipped"],
+        "batch": batch, "seconds": seconds,
+        "s_per_step_median": s_per_step,
+        "imgs_per_s": batch / s_per_step,
+        "loader_wait_s_per_step": float(np.mean(waits[TRAIN_WARMUP:])),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+        "per_step": [{"step": e["step"], "shape": e["shape"],
+                      "first_of_shape": f, "s": t, "wait_s": w,
+                      "loss": e["loss"]}
+                     for e, t, f, w in zip(steps, times, first_of_shape,
+                                           waits)],
+    }
+    repeat = [t for t, f in zip(times, first_of_shape) if not f]
+    summary["s_per_step_median_repeated_shape"] = (
+        float(np.median(repeat)) if repeat else None)
+    log("train phase: " + json.dumps(summary))
+    if result["steps"] != TRAIN_STEPS or len(steps) != TRAIN_STEPS:
+        raise AssertionError(f"trained {result['steps']} steps")
+    if result["skipped"]:
+        raise AssertionError(f"{result['skipped']} steps skipped")
+    if not all(np.isfinite(e["loss"]) for e in steps):
+        raise AssertionError("a train loss is not finite")
+    if any(launches.values()):
+        raise AssertionError(f"the train path launched {launches}")
+
+    # the epoch-1 checkpoint through the eval
+    pair = [os.path.join(ckpt, f"{part}_epoch_1.pth")
+            for part in ("encoder", "decoder")]
+    ecfg = load_config("configs/test_ood_street.yaml", [
+        "DATASET.root_dataset", root,
+        "DATASET.list_val", os.path.join(root, "test.odgt"),
+        "MODEL.weights_encoder", pair[0], "MODEL.weights_decoder", pair[1]])
+    res = eval_ood.main(ecfg, torch.bfloat16, max_images=2, batch_images=2,
+                        device=DEVICE)
+    metrics = {k: res[k] for k in ("mean_iou", "accuracy", "auroc", "aupr",
+                                   "fpr")}
+    log("eval of the epoch-1 checkpoint: " + json.dumps(metrics))
+    for key, value in metrics.items():
+        if value is None or not np.isfinite(value):
+            raise AssertionError(f"epoch-1 checkpoint: {key} = {value}")
+    summary["eval_epoch_1"] = metrics
+    return summary
+
+
+def train_step_check():
+    """One train step of the narrow twin (deep-stem Bottleneck ResNet,
+    layers (1, 1, 1, 1), planes 8..64, fc_dim 256, 13 classes) on a batch
+    of two 64x64 images, in fp32 with TF32 off, dropout held out, on cuda
+    and on the CPU from the same weights: the loss, every parameter after
+    the SGD step and the BN running statistics must agree
+    (TRAIN_CHECK_* tolerances)."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.models.builder import (
+        SegmentationModel, init_weights)
+    from open_world_semantic_segmentation_tpu_torch.models.decoders import (
+        PPMDeepsupEmbedding)
+    from open_world_semantic_segmentation_tpu_torch.models.resnet import (
+        Bottleneck, ResNet)
+    from open_world_semantic_segmentation_tpu_torch.train.optim import (
+        poly_schedule, two_group_optimizer)
+    from open_world_semantic_segmentation_tpu_torch.train.state import (
+        AnomalyTrainStep)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lr = 0.02
+    rng = np.random.default_rng(SEED)
+    img = rng.standard_normal((2, 64, 64, 3)).astype(np.float32)
+    label = rng.integers(0, 13, (2, 8, 8)).astype(np.int32)
+    label[rng.random((2, 8, 8)) < 0.15] = -1
+    runs = {}
+    for device in ("cpu", DEVICE):
+        model = SegmentationModel(
+            ResNet(block=Bottleneck, layers=(1, 1, 1, 1),
+                   planes=(8, 16, 32, 64), stem="deep", output_stride=8),
+            PPMDeepsupEmbedding(num_class=13, fc_dim=256))
+        init_weights(model, torch.Generator().manual_seed(SEED))
+        model = model.train().to(device)
+        if device != "cpu":
+            model = model.to(memory_format=torch.channels_last)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.eval()
+        opt = two_group_optimizer(model, lr_encoder=poly_schedule(lr, 10),
+                                  lr_decoder=poly_schedule(lr, 10))
+        step = AnomalyTrainStep(model, opt, guard=True, dtype=torch.float32)
+        metrics = step({"img_data": torch.from_numpy(img).to(device),
+                        "seg_label": torch.from_numpy(label).to(device)})
+        runs[device] = (float(metrics["loss"]), bool(metrics["skipped"]),
+                        {k: v.detach().cpu()
+                         for k, v in model.state_dict().items()},
+                        {k: p.grad.detach().cpu()
+                         for k, p in model.named_parameters()})
+    (loss_c, skip_c, state_c, grad_c) = runs["cpu"]
+    (loss_g, skip_g, state_g, _) = runs[DEVICE]
+    log(f"train step check: loss cuda {loss_g} cpu {loss_c}")
+    if skip_c or skip_g or not abs(loss_g - loss_c) <= (
+            TRAIN_CHECK_LOSS_RTOL * abs(loss_c)):
+        raise AssertionError(f"train step loss {loss_g} vs {loss_c}")
+    worst = {"param": 0.0, "bn": 0.0}
+    for key, want in state_c.items():
+        got = state_g[key]
+        if key.endswith("num_batches_tracked"):
+            if not torch.equal(got, want):
+                raise AssertionError(f"{key}: {got} vs {want}")
+            continue
+        if key in grad_c:
+            kind = "param"
+            bound = 1e-5 * want.abs() + lr * TRAIN_CHECK_GRAD_FRAC * float(
+                grad_c[key].abs().max())
+        else:
+            kind = "bn"
+            frac, atol = TRAIN_CHECK_BN_TOL
+            bound = frac * float(want.abs().max()) + atol
+        excess = float(((got - want).abs() / bound).max())
+        worst[kind] = max(worst[kind], excess)
+        if excess > 1.0:
+            raise AssertionError(
+                f"train step check: {key} off by "
+                f"{float((got - want).abs().max())} (largest |value| "
+                f"{float(want.abs().max())})")
+    log("train step check: largest |difference| / bound: "
+        + json.dumps(worst))
+    return {"loss_cuda": loss_g, "loss_cpu": loss_c, **worst}
+
+
+# ---------------------------------------------------------------------------
 def device_check(cfg):
     """The full-width model of ``cfg`` over a 64x96 crop of the first eval
     image: in fp32, TF32 off, on cuda (unfused and fused) against the CPU;
@@ -796,13 +1142,22 @@ def main():
         log("kernel phase: " + json.dumps(kernel))
     with tempfile.TemporaryDirectory() as root:
         summaries, launches, cfg = slice_phase(root)
+        train = train_phase(root, (cfg.MODEL.weights_encoder,
+                                   cfg.MODEL.weights_decoder))
         device_check(cfg)
+        train_check = train_step_check()
     # launches on the main path: knn_cosine in the knn run, fused_bottleneck
     # in the fused run (the runs that take each kernel's path)
     kernels[0]["launches"] = launches["knn"]["knn_cosine"]
     set_path_dtype(kernels[0], summaries.pop("knn_input_dtype"))
     kernels[1]["launches"] = launches["dissum_fused"]["fused_bottleneck"]
     log(f"gpu: {gpu}; eval summaries: " + json.dumps(summaries))
+    log(f"gpu: {gpu}; train: s/step {train['s_per_step_median']}, imgs/s "
+        f"{train['imgs_per_s']}, loader wait s/step "
+        f"{train['loader_wait_s_per_step']}, peak memory "
+        f"{train['peak_memory_bytes']} bytes, skipped {train['skipped']}, "
+        f"losses {[e['loss'] for e in train['per_step']]}; train step check "
+        + json.dumps(train_check))
     log(f"total {time.perf_counter() - tic:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

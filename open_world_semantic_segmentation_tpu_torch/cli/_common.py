@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
@@ -39,10 +40,12 @@ def compute_dtype(args):
     return torch.float32
 
 
-def build_anomaly_model(cfg: Config, device=None, fused_blocks: bool = False):
-    """The config's encoder + decoder, in eval mode on ``device`` (channels
-    last on CUDA, the layout cuDNN's convs prefer). ``fused_blocks`` routes
-    the backbone's eligible bottlenecks through the fused kernel."""
+def build_anomaly_model(cfg: Config, device=None, fused_blocks: bool = False,
+                        train: bool = False):
+    """The config's encoder + decoder on ``device`` (channels last on CUDA,
+    the layout cuDNN's convs prefer), in training mode if ``train`` else in
+    eval mode. ``fused_blocks`` routes the backbone's eligible bottlenecks
+    through the fused kernel (eval mode only)."""
     from ..models.builder import ModelBuilder
 
     device = resolve_device(device)
@@ -50,7 +53,7 @@ def build_anomaly_model(cfg: Config, device=None, fused_blocks: bool = False):
         cfg.MODEL.arch_encoder, cfg.MODEL.arch_decoder,
         num_class=cfg.DATASET.num_class, fc_dim=cfg.MODEL.fc_dim,
         fused_blocks=fused_blocks)
-    model = model.eval().to(device)
+    model = model.train(train).to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     return model
@@ -68,17 +71,32 @@ def _load_pth(path: str):
 
 def init_or_load_variables(cfg: Config, model, *, seed: int = 0):
     """Initialise ``model`` from a seeded generator; if MODEL.weights_encoder
-    and weights_decoder name the reference's ``.pth`` files, load them."""
+    and weights_decoder name the reference's ``.pth`` pair, load them; if
+    either names a JAX ``*.pkl`` checkpoint, load that."""
     from ..models.builder import init_weights
 
     enc_w, dec_w = cfg.MODEL.weights_encoder, cfg.MODEL.weights_decoder
-    if enc_w or dec_w:
+    if enc_w.endswith(".pkl") or dec_w.endswith(".pkl"):
+        from ..train.checkpoint import load_jax_checkpoint
+
+        enc, dec = load_jax_checkpoint(enc_w if enc_w.endswith(".pkl")
+                                       else dec_w)
+    elif enc_w or dec_w:
         if not (enc_w.endswith(".pth") and dec_w.endswith(".pth")):
-            raise NotImplementedError(
-                "the port loads the reference's encoder/decoder .pth pair; "
-                "other checkpoint formats are queued in ROADMAP.md")
-        model.encoder.load_state_dict(_load_pth(enc_w))
-        model.decoder.load_state_dict(_load_pth(dec_w))
+            raise ValueError(
+                "MODEL.weights_encoder / weights_decoder: give the "
+                "encoder/decoder .pth pair or a JAX .pkl checkpoint")
+        enc, dec = _load_pth(enc_w), _load_pth(dec_w)
+    else:
+        init_weights(model, torch.Generator().manual_seed(seed))
         return model
-    init_weights(model, torch.Generator().manual_seed(seed))
+    model.encoder.load_state_dict(enc)
+    model.decoder.load_state_dict(dec)
     return model
+
+
+def epoch_checkpoint_path(cfg: Config, kind: str, epoch: int) -> str:
+    """``cfg.DIR/<kind>_epoch_<epoch>.pth`` (kind: encoder or decoder), the
+    reference's checkpoint names."""
+    os.makedirs(cfg.DIR, exist_ok=True)
+    return os.path.join(cfg.DIR, f"{kind}_epoch_{epoch}.pth")

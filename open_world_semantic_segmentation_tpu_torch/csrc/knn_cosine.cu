@@ -54,6 +54,22 @@
 // instruction issue in the per-channel passes, about half its time; the
 // norms, which are taken for the halo too (2.25x the tile's pixels in
 // bf16, 3x in float32); staging, whose halo is read again from L2.
+//
+// Generic path. The tiled kernel takes C <= 32 and halo <= 8, the eval's
+// map. Any other map (the 4096-d PPM concat, a wider neighbourhood) takes
+// three simple kernels, right rather than fast, all arithmetic in double,
+// over scratch the caller allocates:
+//  a. norms: one warp per pixel, max(sqrt(sum of squares), eps);
+//  b. per chunk of channels, one thread per pixel and channel: the
+//     horizontal halo-wide sums of fn = f / norm to the left (HM) and to
+//     the right (HP) of each pixel;
+//  c. per chunk, one warp per pixel: sum over the chunk's channels of
+//     fn[p] * (HM summed over the halo rows above + HP over the rows
+//     below), added to an accumulator; the last chunk writes out[p],
+//     rounded to float32 once (a constant map gives the exact counts).
+// The same box-sum identity as the tiled kernel, with a runtime halo and
+// channel count. Each pixel-channel value is read 2 * halo times in (b)
+// and the scratch 2 * halo times in (c), from L2 or L1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -391,12 +407,139 @@ size_t smem_dispatch(int halo, int C, std::integer_sequence<int, HALO...>) {
 
 using Halos = std::make_integer_sequence<int, kMaxHalo + 1>;
 
+// ---- generic path: any C, any halo -----------------------------------
+constexpr int kGenericThreads = 256;
+
+template <typename T>
+__device__ __forceinline__ double normalised(const T* ft, const double* norm,
+                                             size_t pixel, int C, int c) {
+  return static_cast<double>(to_float(ft[pixel * C + c])) / norm[pixel];
+}
+
+__device__ __forceinline__ double warp_sum(double s) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// a. norm[p] = max(||f[p]||, eps), one warp per pixel
+template <typename T>
+__global__ void __launch_bounds__(kGenericThreads)
+knn_norm_kernel(const T* __restrict__ ft, double* __restrict__ norm, int HW,
+                int C, float eps) {
+  const long long pixel =
+      (static_cast<long long>(blockIdx.x) * kGenericThreads + threadIdx.x) /
+      32;
+  const int lane = threadIdx.x % 32;
+  if (pixel >= HW) return;                 // whole warps leave together
+  const T* px = ft + pixel * C;
+  double s = 0.0;
+  for (int c = lane; c < C; c += 32) {
+    const double v = to_float(px[c]);
+    s += v * v;
+  }
+  s = warp_sum(s);
+  if (lane == 0) norm[pixel] = fmax(sqrt(s), static_cast<double>(eps));
+}
+
+// b. hm[p][cc] = sum_{d=1..halo} fn[y][x-d][c0+cc], hp the same at x+d;
+//    one thread per pixel and channel of the chunk
+template <typename T>
+__global__ void __launch_bounds__(kGenericThreads)
+knn_hsum_kernel(const T* __restrict__ ft, const double* __restrict__ norm,
+                double* __restrict__ hm, double* __restrict__ hp, int H,
+                int W, int C, int c0, int CH, int halo) {
+  const size_t i =
+      static_cast<size_t>(blockIdx.x) * kGenericThreads + threadIdx.x;
+  if (i >= static_cast<size_t>(H) * W * CH) return;
+  const int c = c0 + static_cast<int>(i % CH);
+  const size_t pixel = i / CH;
+  const int x = static_cast<int>(pixel % W);
+  double m = 0.0, q = 0.0;
+  const int left = min(halo, x), right = min(halo, W - 1 - x);
+  for (int d = 1; d <= left; ++d) m += normalised(ft, norm, pixel - d, C, c);
+  for (int d = 1; d <= right; ++d) q += normalised(ft, norm, pixel + d, C, c);
+  hm[i] = m;
+  hp[i] = q;
+}
+
+// c. acc[p] (+)= sum_cc fn[p][c0+cc] * (sum_{d=1..halo} hm[y-d][x][cc]
+//                                       + hp[y+d][x][cc]),
+//    one warp per pixel; the last chunk writes out[p] instead
+template <typename T>
+__global__ void __launch_bounds__(kGenericThreads)
+knn_vdot_kernel(const T* __restrict__ ft, const double* __restrict__ norm,
+                const double* __restrict__ hm, const double* __restrict__ hp,
+                double* __restrict__ acc, float* __restrict__ out, int H,
+                int W, int C, int c0, int CH, int halo, int first,
+                int last) {
+  const long long pixel =
+      (static_cast<long long>(blockIdx.x) * kGenericThreads + threadIdx.x) /
+      32;
+  const int lane = threadIdx.x % 32;
+  if (pixel >= static_cast<long long>(H) * W) return;
+  const int y = static_cast<int>(pixel / W);
+  const int up = min(halo, y), down = min(halo, H - 1 - y);
+  double s = 0.0;
+  for (int cc = lane; cc < CH; cc += 32) {
+    double b = 0.0;
+    for (int d = 1; d <= up; ++d) {
+      b += hm[static_cast<size_t>(pixel - static_cast<long long>(d) * W) *
+                  CH + cc];
+    }
+    for (int d = 1; d <= down; ++d) {
+      b += hp[static_cast<size_t>(pixel + static_cast<long long>(d) * W) *
+                  CH + cc];
+    }
+    s += normalised(ft, norm, pixel, C, c0 + cc) * b;
+  }
+  s = warp_sum(s);
+  if (lane == 0) {
+    const double t = first ? s : acc[pixel] + s;
+    if (last) {
+      out[pixel] = static_cast<float>(t);
+    } else {
+      acc[pixel] = t;
+    }
+  }
+}
+
+template <typename T>
+int launch_generic(const void* ft_v, float* out, double* norm,
+                   double* hsum, double* acc, int H, int W, int C, int halo,
+                   int chunk, float eps, cudaStream_t stream) {
+  const T* ft = static_cast<const T*>(ft_v);
+  const long long hw = static_cast<long long>(H) * W;
+  const unsigned warp_blocks = static_cast<unsigned>(
+      (hw * 32 + kGenericThreads - 1) / kGenericThreads);
+  knn_norm_kernel<T><<<warp_blocks, kGenericThreads, 0, stream>>>(
+      ft, norm, static_cast<int>(hw), C, eps);
+  int err = static_cast<int>(cudaGetLastError());
+  for (int c0 = 0; c0 < C && err == 0; c0 += chunk) {
+    const int ch = min(chunk, C - c0);
+    double* hm = hsum;
+    double* hp = hsum + hw * ch;
+    const long long items = hw * ch;
+    const unsigned blocks = static_cast<unsigned>(
+        (items + kGenericThreads - 1) / kGenericThreads);
+    knn_hsum_kernel<T><<<blocks, kGenericThreads, 0, stream>>>(
+        ft, norm, hm, hp, H, W, C, c0, ch, halo);
+    err = static_cast<int>(cudaGetLastError());
+    if (err != 0) break;
+    knn_vdot_kernel<T><<<warp_blocks, kGenericThreads, 0, stream>>>(
+        ft, norm, hm, hp, acc, out, H, W, C, c0, ch, halo, c0 == 0,
+        c0 + ch >= C);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Largest channel count and halo (neighbor_size - 1) the kernel takes; the
-// Python wrapper checks its inputs against them before launching.
+// Largest channel count and halo (neighbor_size - 1) the tiled kernel
+// takes; the Python wrapper sends every other map to knn_cosine_generic.
 int knn_cosine_max_channels() { return kMaxC; }
 int knn_cosine_max_halo() { return kMaxHalo; }
 
@@ -424,6 +567,29 @@ int knn_cosine(const void* ft, int itemsize, float* out, int H, int W, int C,
   }
   if (itemsize == 2) {
     return dispatch<__nv_bfloat16>(halo, ft, out, H, W, C, eps, s, Halos{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Any C and halo. Scratch, all double and contiguous on the device: norm
+// (H * W), hsum (2 * H * W * chunk), acc (H * W); chunk is the number of
+// channels each pass over the scratch takes (1..C).
+int knn_cosine_generic(const void* ft, int itemsize, float* out,
+                       double* norm, double* hsum, double* acc, int H, int W,
+                       int C, int halo, int chunk, float eps, void* stream) {
+  // the grids stay below 2^31 blocks
+  if (H <= 0 || W <= 0 || C <= 0 || halo < 0 || chunk <= 0 || chunk > C ||
+      static_cast<long long>(H) * W * chunk > (1LL << 38)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (itemsize == 4) {
+    return launch_generic<float>(ft, out, norm, hsum, acc, H, W, C, halo,
+                                 chunk, eps, s);
+  }
+  if (itemsize == 2) {
+    return launch_generic<__nv_bfloat16>(ft, out, norm, hsum, acc, H, W, C,
+                                         halo, chunk, eps, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

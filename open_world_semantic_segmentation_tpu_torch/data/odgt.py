@@ -1,26 +1,34 @@
-"""odgt-list eval pipeline (StreetHazards / BDD / Lost&Found), host side.
+"""odgt-list pipelines (StreetHazards / BDD / Lost&Found), host side.
 
-numpy/PIL re-implementation of the reference's ``anomaly/dataset.py`` eval
-path, the same as the JAX package's ``data/odgt.py`` ``ValPipeline`` on its
-PIL path:
+numpy/PIL re-implementation of the reference's ``anomaly/dataset.py``, the
+same as the JAX package's ``data/odgt.py``:
 
 - records ``{fpath_img, fpath_segm, height, width}`` parsed from a one-line
   JSON array;
 - ImageNet normalisation, labels shifted by -1;
-- a per-image pyramid of all ``img_sizes`` resizes (PIL bilinear), each
-  rounded up to the padding multiple, plus the untouched label.
+- ``TrainPipeline``: aspect-ratio-bucketed sub-batches (h > w vs h <= w),
+  a random short edge per batch from ``img_sizes`` capped by
+  ``img_max_size``, padding to a multiple of ``padding_constant``, labels
+  nearest-downsampled by ``segm_downsampling_rate`` after rounding up,
+  random horizontal flips; resampling by the native library
+  (``data/native.py``, the default) or PIL;
+- ``ValPipeline``: a per-image pyramid of all ``img_sizes`` resizes (PIL
+  bilinear), each rounded up to the padding multiple, plus the untouched
+  label.
 
-Items are numpy arrays in NHWC; the evaluator moves them to the device.
+Items are numpy arrays in NHWC; the consumer moves them to the device.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import List
+from typing import Iterator, List
 
 import numpy as np
 from PIL import Image
+
+from . import native
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
@@ -70,6 +78,131 @@ def eval_pyramid_shapes(src_h: int, src_w: int,
                        round2nearest_multiple(int(src_w * scale),
                                               padding_constant)))
     return shapes
+
+
+def imresize(im: Image.Image, size, interp="bilinear") -> Image.Image:
+    """PIL resize to ``size`` = (w, h)."""
+    resample = {"nearest": Image.NEAREST, "bilinear": Image.BILINEAR}[interp]
+    return im.resize(size, resample)
+
+
+class TrainPipeline:
+    """Infinite iterator of train batches with the reference's bucketing.
+
+    Each batch is ``{"img_data": (B, bh, bw, 3) float32, "seg_label":
+    (B, bh / r, bw / r) int32}`` with r the label down-sampling rate. For a
+    seed and a tree it yields the JAX package's batches: the same
+    ``np.random.default_rng(seed)`` draws in the same order, the same
+    resampling (PIL, or the same native library). ``use_native=True`` (the
+    default, as in the JAX package) raises where the native library cannot
+    be built; there is no quiet switch to PIL. One host only.
+    """
+
+    def __init__(self, root_dataset: str, odgt, *, batch_per_gpu: int = 2,
+                 img_sizes=(300, 375, 450, 525, 600), img_max_size=1000,
+                 padding_constant=8, segm_downsampling_rate=8,
+                 random_flip=True, seed: int = 304, num_hosts: int = 1,
+                 use_native: bool = True):
+        if num_hosts != 1:
+            raise NotImplementedError(
+                "multi-host sharding is not ported yet (ROADMAP.md queues "
+                "it with parallel/)")
+        self.native = None
+        if use_native:
+            self.native = native
+            native.load()              # raises here, with the reason
+        self.root = root_dataset
+        self.records = parse_odgt(odgt)
+        self.batch_per_gpu = batch_per_gpu
+        self.img_sizes = tuple(img_sizes)
+        self.img_max_size = img_max_size
+        self.padding_constant = padding_constant
+        self.segm_down = segm_downsampling_rate
+        self.random_flip = random_flip
+        self.rng = np.random.default_rng(seed)
+        self._bucket = [[], []]
+        self._cursor = 0
+        self._order = list(range(len(self.records)))
+
+    def _next_sub_batch(self) -> List[dict]:
+        while True:
+            rec = self.records[self._order[self._cursor]]
+            idx = 0 if rec["height"] > rec["width"] else 1
+            self._bucket[idx].append(rec)
+            self._cursor += 1
+            if self._cursor >= len(self.records):
+                self._cursor = 0
+                self.rng.shuffle(self._order)
+            if len(self._bucket[idx]) == self.batch_per_gpu:
+                out = self._bucket[idx]
+                self._bucket[idx] = []
+                return out
+
+    def _load_pair(self, rec):
+        img = Image.open(os.path.join(self.root, rec["fpath_img"]))
+        segm = Image.open(os.path.join(self.root, rec["fpath_segm"]))
+        img = img.convert("RGB")
+        if segm.mode != "L" or img.size != segm.size:
+            raise ValueError(f"{rec['fpath_segm']}: label must be an L-mode "
+                             "image of the photo's size")
+        return img, segm
+
+    def __iter__(self) -> Iterator[dict]:
+        while True:
+            yield self.next_batch()
+
+    def _resample_native(self, img, segm, h, w):
+        arr = self.native.resize_normalize(np.asarray(img), (h, w))
+        seg_full = self.native.resize_label(np.asarray(segm), (h, w),
+                                            offset=0)
+        sw = round2nearest_multiple(w, self.segm_down)
+        sh = round2nearest_multiple(h, self.segm_down)
+        canvas = np.zeros((sh, sw), np.uint8)
+        canvas[:seg_full.shape[0], :seg_full.shape[1]] = \
+            seg_full.astype(np.uint8)
+        seg = self.native.resize_label(
+            canvas, (sh // self.segm_down, sw // self.segm_down), offset=-1)
+        return arr, seg
+
+    def _resample_pil(self, img, segm, h, w):
+        img = imresize(img, (w, h), "bilinear")
+        segm = imresize(segm, (w, h), "nearest")
+        sw = round2nearest_multiple(segm.size[0], self.segm_down)
+        sh = round2nearest_multiple(segm.size[1], self.segm_down)
+        canvas = Image.new("L", (sw, sh), 0)
+        canvas.paste(segm, (0, 0))
+        segm = imresize(canvas, (sw // self.segm_down, sh // self.segm_down),
+                        "nearest")
+        return img_transform(img), segm_transform(segm)
+
+    def next_batch(self) -> dict:
+        records = self._next_sub_batch()
+        short = int(self.rng.choice(self.img_sizes))
+
+        widths = np.zeros(self.batch_per_gpu, np.int32)
+        heights = np.zeros(self.batch_per_gpu, np.int32)
+        for i, rec in enumerate(records):
+            h, w = rec["height"], rec["width"]
+            scale = min(short / min(h, w), self.img_max_size / max(h, w))
+            widths[i] = int(w * scale)
+            heights[i] = int(h * scale)
+        bw = round2nearest_multiple(int(widths.max()), self.padding_constant)
+        bh = round2nearest_multiple(int(heights.max()), self.padding_constant)
+
+        imgs = np.zeros((self.batch_per_gpu, bh, bw, 3), np.float32)
+        segs = np.zeros((self.batch_per_gpu, bh // self.segm_down,
+                         bw // self.segm_down), np.int32)
+        for i, rec in enumerate(records):
+            img, segm = self._load_pair(rec)
+            if self.random_flip and self.rng.choice([0, 1]):
+                img = img.transpose(Image.FLIP_LEFT_RIGHT)
+                segm = segm.transpose(Image.FLIP_LEFT_RIGHT)
+            resample = (self._resample_native if self.native is not None
+                        else self._resample_pil)
+            arr, seg = resample(img, segm, int(heights[i]), int(widths[i]))
+            imgs[i, :arr.shape[0], :arr.shape[1]] = arr
+            segs[i, :seg.shape[0], :seg.shape[1]] = seg
+        return {"img_data": imgs, "seg_label": segs}
 
 
 class ValPipeline:

@@ -1,14 +1,24 @@
-"""Host-side background prefetch.
+"""Background prefetch: host items, or batches already on the device.
 
-A thread produces upcoming items (PIL decode and resample) while the device
-works on the current one. Device copies stay with the consumer.
+A thread produces upcoming items (decode and resample) while the device
+works on the current one.
+
+- ``iter_prefetch``: host items only; device copies stay with the consumer.
+- ``prefetch_to_device``: dicts of numpy arrays, each array copied to the
+  device with ``size`` batches in flight. On CUDA the producer thread
+  copies each batch into pinned host memory and the consumer issues
+  ``non_blocking`` copies on the current stream, so the transfer overlaps
+  the step before it.
 """
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 from typing import Iterable, Iterator
+
+import torch
 
 _END = object()
 
@@ -42,3 +52,30 @@ def iter_prefetch(iterable: Iterable, depth: int = 4) -> Iterator:
             yield item
     finally:
         stop.set()
+        # free a slot, so a producer blocked on a full queue gets to see
+        # ``stop`` and end its thread
+        try:
+            q.get_nowait()
+        except queue.Empty:
+            pass
+
+
+def prefetch_to_device(iterable: Iterable, device, *,
+                       size: int = 2) -> Iterator:
+    """Iterate ``iterable`` (dicts of numpy arrays) as dicts of tensors on
+    ``device``, with ``size`` batches in flight on it; an exception in the
+    producer is raised here."""
+    device = torch.device(device)
+    pin = device.type == "cuda"
+
+    def host(batch):
+        out = {k: torch.from_numpy(v) for k, v in batch.items()}
+        return {k: t.pin_memory() for k, t in out.items()} if pin else out
+
+    pending = collections.deque()
+    for batch in iter_prefetch(map(host, iterable), depth=size):
+        pending.append({k: t.to(device, non_blocking=pin)
+                        for k, t in batch.items()})
+        if len(pending) == size:
+            yield pending.popleft()
+    yield from pending

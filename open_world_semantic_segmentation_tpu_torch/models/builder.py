@@ -24,17 +24,19 @@ DECODER_BN_BIAS = 1e-4
 
 class SegmentationModel(nn.Module):
     """encoder -> decoder. Takes an NHWC image batch and returns the
-    decoder's NHWC dict, upsampled to ``seg_size`` (inference)."""
+    decoder's NHWC dict: upsampled to ``seg_size`` (inference), or at
+    feature resolution without it (training). Other keywords go to the
+    decoder."""
 
     def __init__(self, encoder: nn.Module, decoder: nn.Module):
         super().__init__()
         self.encoder = encoder
         self.decoder = decoder
 
-    def forward(self, img: torch.Tensor, seg_size=None):
+    def forward(self, img: torch.Tensor, seg_size=None, **decoder_kw):
         # a contiguous NHWC batch viewed as NCHW is channels_last: no copy
         conv_out = self.encoder(img.permute(0, 3, 1, 2))
-        return self.decoder(conv_out, seg_size=seg_size)
+        return self.decoder(conv_out, seg_size=seg_size, **decoder_kw)
 
 
 def _not_ported(kind: str, arch: str):

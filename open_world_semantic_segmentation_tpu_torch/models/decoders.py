@@ -8,9 +8,13 @@ models.py:586-687) as the JAX package's ``models/decoders.py`` computes it:
   is the K-dim output of ``conv_last`` and the distance head is the fixed
   one-hot-center rule of ``ops/distance.py``;
 - the fuse conv runs concat-free (``ops/ppm_fuse.py``), the JAX default;
-- the deep-supervision branch (the JAX package's ``_DeepsupBranch``) holds
-  its parameters, so checkpoints load, but only training runs it, and the
-  training forward (no ``seg_size``) is not ported yet.
+- in training (no ``seg_size``) it returns ``scores``, ``deepsup`` (the
+  deep-supervision branch off conv4) and ``embedding`` at feature
+  resolution; ``ft``, the 4096-d concat the JAX package also returns
+  there, is built only when asked (``concat_ft=True``): eager PyTorch would
+  otherwise materialise it in every train step, which never reads it;
+- dropout is element-wise (``nn.Dropout(0.1)``), as in the JAX package; the
+  torch reference drops whole channels (``nn.Dropout2d``).
 
 Modules keep the reference's key names (``ppm.0.1.weight``,
 ``conv_last.0.weight``, ``conv_last.4.bias``, ``cbr_deepsup.0.weight``,
@@ -67,7 +71,7 @@ class _PPMHead(nn.Sequential):
             nn.Conv2d(in_channels, PPM_CHANNELS, 3, padding=1, bias=False),
             bn.make(PPM_CHANNELS),
             nn.ReLU(inplace=True),
-            nn.Dropout2d(0.1),
+            nn.Dropout(0.1),
             Conv(PPM_CHANNELS, num_class))
 
     def forward(self, conv5, pools):
@@ -91,21 +95,25 @@ class PPMDeepsupEmbedding(nn.Module):
         self.ppm = _PPMTrunk(fc_dim, pool_scales, bn)
         self.conv_last = _PPMHead(fc_dim + len(pool_scales) * PPM_CHANNELS,
                                   num_class, bn)
-        # deep supervision off conv4: parameters only until training lands
+        # deep supervision off conv4 (training only)
         self.cbr_deepsup = ConvBN(fc_dim // 2, fc_dim // 4, 3, padding=1,
                                   bn=bn)
-        self.dropout_deepsup = nn.Dropout2d(0.1)
+        self.dropout_deepsup = nn.Dropout(0.1)
         self.conv_last_deepsup = Conv(fc_dim // 4, num_class)
 
-    def forward(self, conv_out, seg_size=None):
-        if seg_size is None:
-            raise NotImplementedError(
-                "the training forward (deep supervision, no seg_size) is not "
-                "ported yet; ROADMAP.md queues it")
+    def forward(self, conv_out, seg_size=None, concat_ft: bool = False):
         conv5 = conv_out[-1]
-        emb = _nhwc(self.conv_last(conv5, self.ppm(conv5)))
+        pools = self.ppm(conv5)
+        emb = _nhwc(self.conv_last(conv5, pools))
         scores = one_hot_center_logits(emb, self.magnitude)
-        # ``ft`` is the pre-distance K-dim map: the 4096-d concat never
-        # materialises on the eval path
-        return {"scores": bilinear_resize(scores, seg_size),
-                "ft": bilinear_resize(emb, seg_size)}
+        if seg_size is not None:
+            # ``ft`` is the pre-distance K-dim map: the 4096-d concat never
+            # materialises on the eval path
+            return {"scores": bilinear_resize(scores, seg_size),
+                    "ft": bilinear_resize(emb, seg_size)}
+        ds = self.conv_last_deepsup(self.dropout_deepsup(
+            self.cbr_deepsup(conv_out[-2])))
+        out = {"scores": scores, "deepsup": _nhwc(ds), "embedding": emb}
+        if concat_ft:
+            out["ft"] = _nhwc(_ppm_concat(conv5, pools))
+        return out

@@ -1,9 +1,14 @@
-"""Shared building blocks: conv + batch-norm + activation, inference only.
+"""Shared building blocks: conv + batch-norm + activation.
 
 Modules keep the reference's torch ``state_dict`` key names, so its
 checkpoints load with plain ``load_state_dict``: ``ConvBN`` is a
 ``Sequential`` (conv at index 0, BN at 1), which gives the reference's
 ``downsample.0`` / ``downsample.1`` and ``cbr_deepsup.0`` / ``.1`` keys.
+
+Batch norm in training mode follows the JAX package (flax ``BatchNorm``),
+not ``torch.nn.BatchNorm2d``, where the two differ: the running variance
+takes in the biased batch variance (torch takes the unbiased one, n/(n-1)
+times larger).
 """
 
 from __future__ import annotations
@@ -11,6 +16,40 @@ from __future__ import annotations
 import dataclasses
 
 import torch.nn as nn
+import torch.nn.functional as F
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's running-variance update in training:
+    running_var = (1 - m) * running_var + m * biased batch variance.
+
+    torch's own update is kept and corrected afterwards, on the C running
+    values alone: from torch's r' = (1 - m) r + m v n / (n - 1), flax's
+    value is r' (n - 1) / n + (1 - m) r / n. No extra pass over the
+    activations; two element-wise ops on C values and a copy of r per call.
+
+    ``update_stats = False`` (the trainer's ``fix_bn``) normalises with the
+    batch statistics and leaves the running ones as they were.
+    """
+
+    update_stats = True
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        if not self.update_stats:
+            return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                                0.0, self.eps)
+        n = x.numel() // x.shape[1]
+        # torch's factor: momentum, or 1 / batches seen when it is None
+        m = (self.momentum if self.momentum is not None
+             else 1.0 / (float(self.num_batches_tracked) + 1.0))
+        old = self.running_var.clone()
+        y = super().forward(x)
+        # through .data: autograd saved running_var with the batch norm (its
+        # training backward does not read it) and would refuse a new version
+        self.running_var.data.mul_((n - 1) / n).add_(old, alpha=(1 - m) / n)
+        return y
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,9 +60,9 @@ class BNConfig:
     momentum: float = 0.1
     epsilon: float = 1e-5
 
-    def make(self, num_features: int) -> nn.BatchNorm2d:
-        return nn.BatchNorm2d(num_features, eps=self.epsilon,
-                              momentum=self.momentum)
+    def make(self, num_features: int) -> BatchNorm2d:
+        return BatchNorm2d(num_features, eps=self.epsilon,
+                           momentum=self.momentum)
 
 
 class ConvBN(nn.Sequential):

@@ -61,26 +61,34 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless its library exists; return its path."""
-    out = library_path(source)
+def compile_library(cmd, source: Path, out: Path) -> Path:
+    """Run ``cmd + ["-o", <tmp>, source]`` unless ``out`` exists; return
+    ``out``. Compiles to a private name, then renames: concurrent builders
+    never load a half-written library."""
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.run([*cmd, "-o", tmp, str(source)],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+            raise RuntimeError(f"{cmd[0]} failed on {source.name}:\n"
+                               f"{proc.stderr}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` unless its library exists; return its path."""
+    out = library_path(source)
+    if out.exists():
+        return out
+    return compile_library([_nvcc(), *NVCC_FLAGS], CSRC / source, out)
 
 
 @functools.lru_cache(maxsize=None)

@@ -25,8 +25,10 @@ def distance_logits(x: torch.Tensor, centers: torch.Tensor):
 
 def one_hot_center_logits(x: torch.Tensor, magnitude: float = 3.0):
     """Distance logits for the fixed one-hot centers ``m * e_k`` (K == C),
-    over the last axis."""
-    x2 = (x * x).sum(-1, keepdim=True)
+    over the last axis, in x's dtype, as the JAX package computes them
+    (CUDA autocast would otherwise return the sum, and so the logits, in
+    float32)."""
+    x2 = (x * x).sum(-1, keepdim=True).to(x.dtype)
     return 2.0 * magnitude * x - magnitude * magnitude - x2
 
 

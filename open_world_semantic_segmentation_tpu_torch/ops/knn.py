@@ -11,9 +11,12 @@ with out-of-image neighbours counting as zero (k = ``neighbor_size``).
 - ``knn_cosine_plain``: plain PyTorch, the arithmetic repeated with shifted
   slices (one pass over the map per shift and direction).
 - ``knn_cosine``: the wrapper. A CPU tensor goes to the plain version; a
-  CUDA tensor goes to the hand-written kernel of ``csrc/knn_cosine.cu`` or
-  raises. The kernel reads the raw float32 or bf16 features and normalises
-  them itself. ``knn_cosine.launches`` counts kernel launches.
+  CUDA tensor goes to the hand-written kernels of ``csrc/knn_cosine.cu`` or
+  raises. They read the raw float32 or bf16 features and normalise them
+  themselves: the tiled kernel for C <= 32 and neighbor_size <= 9 (the
+  eval's map), the generic path (three simple kernels over channel chunks,
+  any C and neighbor_size) for every other map. ``knn_cosine.launches``
+  counts calls that launched either.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import torch
 _SOURCE = "knn_cosine.cu"
 # per-block shared memory an H100 grants with the opt-in attribute
 _MAX_SMEM = 232448
+# values (double) of one of the generic path's two horizontal-sum planes
+_GENERIC_PLANE = 1 << 22
 
 
 def normalize_features(ft: torch.Tensor, eps: float = 1e-8):
@@ -73,6 +78,10 @@ def _library():
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     lib.knn_cosine.restype = ctypes.c_int
+    lib.knn_cosine_generic.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    lib.knn_cosine_generic.restype = ctypes.c_int
     for name in ("knn_cosine_max_channels", "knn_cosine_max_halo"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
@@ -81,12 +90,19 @@ def _library():
     return lib
 
 
+def generic_chunk(h: int, w: int, c: int) -> int:
+    """Channels per pass of the generic path: as many as keep each
+    horizontal-sum plane (h * w * chunk doubles) within 32 MB."""
+    return max(1, min(c, _GENERIC_PLANE // (h * w)))
+
+
 def knn_cosine(ft: torch.Tensor, neighbor_size: int = 9, eps: float = 1e-8):
     """(H, W, C) float -> (H, W) float32 cosine-sum map.
 
-    CPU tensors take ``knn_cosine_plain``; CUDA tensors launch the kernel on
-    the raw features (float32 or bf16 as given, any other float type cast
-    to float32), which normalises them itself.
+    CPU tensors take ``knn_cosine_plain``; CUDA tensors launch the kernels
+    on the raw features (float32 or bf16 as given, any other float type
+    cast to float32), which normalise them themselves: the tiled kernel
+    where it takes the map, else the generic path.
     """
     if ft.dim() != 3:
         raise ValueError(f"knn_cosine takes (H, W, C) features, got shape "
@@ -103,24 +119,29 @@ def knn_cosine(ft: torch.Tensor, neighbor_size: int = 9, eps: float = 1e-8):
     h, w, c = ft.shape
     halo = neighbor_size - 1
     lib = _library()
-    if c > lib.knn_cosine_max_channels():
-        raise ValueError(f"knn_cosine kernel takes at most "
-                         f"{lib.knn_cosine_max_channels()} channels, got {c}")
-    if halo > lib.knn_cosine_max_halo():
-        raise ValueError(f"knn_cosine kernel takes neighbor_size at most "
-                         f"{lib.knn_cosine_max_halo() + 1}, got "
-                         f"{neighbor_size}")
     if ft.dtype not in (torch.float32, torch.bfloat16):
         ft = ft.float()
-    if lib.knn_cosine_smem_bytes(c, halo, ft.element_size()) > _MAX_SMEM:
-        raise ValueError(f"knn_cosine window for C={c}, neighbor_size="
-                         f"{neighbor_size} exceeds shared memory")
     ft = ft.contiguous()
+    tiled = (c <= lib.knn_cosine_max_channels()
+             and halo <= lib.knn_cosine_max_halo()
+             and lib.knn_cosine_smem_bytes(c, halo, ft.element_size())
+             <= _MAX_SMEM)
     with torch.cuda.device(ft.device):
         out = torch.empty((h, w), dtype=torch.float32, device=ft.device)
         stream = torch.cuda.current_stream(ft.device).cuda_stream
-        err = lib.knn_cosine(ft.data_ptr(), ft.element_size(),
-                             out.data_ptr(), h, w, c, halo, eps, stream)
+        if tiled:
+            err = lib.knn_cosine(ft.data_ptr(), ft.element_size(),
+                                 out.data_ptr(), h, w, c, halo, eps, stream)
+        else:
+            chunk = generic_chunk(h, w, c)
+            norm = torch.empty((h, w), dtype=torch.float64, device=ft.device)
+            hsum = torch.empty((2, h, w, chunk), dtype=torch.float64,
+                               device=ft.device)
+            acc = torch.empty((h, w), dtype=torch.float64, device=ft.device)
+            err = lib.knn_cosine_generic(
+                ft.data_ptr(), ft.element_size(), out.data_ptr(),
+                norm.data_ptr(), hsum.data_ptr(), acc.data_ptr(), h, w, c,
+                halo, chunk, eps, stream)
     if err != 0:
         raise RuntimeError(f"knn_cosine kernel launch failed: CUDA error "
                            f"{err}")

@@ -53,7 +53,8 @@ def upsampled_conv3x3(p: torch.Tensor, weight: torch.Tensor, out_size, *,
     resolution.
 
     p: (N, kh, kw, C) or (kh, kw, C) pooled map; weight: (Cout, C, 3, 3).
-    Returns (N, H, W, Cout) float32 (unbatched in, unbatched out).
+    Returns (N, H, W, Cout) in float32, or float64 for float64 (unbatched
+    in, unbatched out).
     """
     h, w = int(out_size[0]), int(out_size[1])
     unbatched = p.dim() == 3
@@ -69,7 +70,8 @@ def upsampled_conv3x3(p: torch.Tensor, weight: torch.Tensor, out_size, *,
     # rows: z[n, u, h, b, o] = sum_{t, a} uh[t, h, a] r[n, t, u, a, b, o]
     z = torch.einsum("tha,ntuabo->nuhbo", uh, r)
     # cols: out[n, h, w, o] = sum_{u, b} uw[u, w, b] z[n, u, h, b, o]
-    out = torch.einsum("uwb,nuhbo->nhwo", uw, z).float()
+    out = torch.einsum("uwb,nuhbo->nhwo", uw, z)
+    out = out.to(torch.promote_types(out.dtype, torch.float32))
     return out[0] if unbatched else out
 
 
@@ -80,12 +82,14 @@ def ppm_fuse_conv(conv5: torch.Tensor, pools, weight: torch.Tensor, *,
 
     conv5: (N, H, W, C5); pools: list of (N, kh, kw, Cp) pooled maps at their
     pyramid resolutions; weight: (Cout, C5 + sum Cp, 3, 3), the unchanged
-    conv parameter, sliced per branch. Returns (N, H, W, Cout) float32.
+    conv parameter, sliced per branch. Returns (N, H, W, Cout) in float32,
+    or float64 for float64.
     """
     h, w, c5 = conv5.shape[1:]
     cdt = dtype or conv5.dtype
     y = F.conv2d(conv5.permute(0, 3, 1, 2).to(cdt), weight[:, :c5].to(cdt),
-                 padding=1).permute(0, 2, 3, 1).float()
+                 padding=1).permute(0, 2, 3, 1)
+    y = y.to(torch.promote_types(y.dtype, torch.float32))
     off = c5
     for p in pools:
         cp = p.shape[-1]

@@ -58,9 +58,11 @@ def _interp_matrix(in_size: int, out_size: int):
 def bilinear_resize(x: torch.Tensor, size, *, channel_last: bool = True):
     """Resize ``x`` (NHWC or HWC if channel_last, else NCHW/CHW) to ``size``.
 
-    ``size`` is (H_out, W_out). Returns the input's layout and dtype.
+    ``size`` is (H_out, W_out). Returns the input's layout and dtype, as
+    the JAX package does, also where autocast runs the op in float32.
     """
     h_out, w_out = int(size[0]), int(size[1])
+    dtype = x.dtype
     unbatched = x.dim() == 3
     if unbatched:
         x = x.unsqueeze(0)
@@ -68,7 +70,7 @@ def bilinear_resize(x: torch.Tensor, size, *, channel_last: bool = True):
         x = x.permute(0, 3, 1, 2)
     if tuple(x.shape[-2:]) != (h_out, w_out):
         x = F.interpolate(x, size=(h_out, w_out), mode="bilinear",
-                          align_corners=False)
+                          align_corners=False).to(dtype)
     if channel_last:
         x = x.permute(0, 2, 3, 1)
     return x[0] if unbatched else x

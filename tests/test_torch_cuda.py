@@ -19,6 +19,18 @@ import torch
 
 from open_world_semantic_segmentation_tpu_torch.metrics.anom_device import (
     ood_measures_from_maps)
+from open_world_semantic_segmentation_tpu_torch.models.builder import (
+    SegmentationModel, init_weights)
+from open_world_semantic_segmentation_tpu_torch.models.decoders import (
+    PPMDeepsupEmbedding)
+from open_world_semantic_segmentation_tpu_torch.models.resnet import (
+    Bottleneck, ResNet)
+from open_world_semantic_segmentation_tpu_torch.openset.evaluator import (
+    multi_scale_forward)
+from open_world_semantic_segmentation_tpu_torch.train.optim import (
+    poly_schedule, two_group_optimizer)
+from open_world_semantic_segmentation_tpu_torch.train.state import (
+    AnomalyTrainStep)
 from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
     fused_bottleneck, fused_bottleneck_launcher, fused_bottleneck_plain)
 from open_world_semantic_segmentation_tpu_torch.ops.knn import (
@@ -90,14 +102,51 @@ def test_knn_kernel_zero_and_bf16_input(cuda):
 
 @pytest.mark.cuda
 def test_knn_kernel_rejects_what_it_cannot_take(cuda):
+    """Every C and neighbor_size >= 1 has a kernel (the tiled one or the
+    generic path); what is left to refuse is the wrong rank or type."""
     before = knn_cosine.launches
-    with pytest.raises(ValueError, match="at most"):
-        knn_cosine(torch.zeros((8, 8, 33), device=cuda))
-    # the halo sums are unrolled for neighbor_size up to 9; every window
-    # up to that size and 32 channels fits shared memory
-    with pytest.raises(ValueError, match="neighbor_size at most 9"):
-        knn_cosine(torch.zeros((8, 8, 32), device=cuda), neighbor_size=12)
+    with pytest.raises(ValueError, match="takes \\(H, W, C\\)"):
+        knn_cosine(torch.zeros((8, 8), device=cuda))
+    with pytest.raises(TypeError, match="float features"):
+        knn_cosine(torch.zeros((8, 8, 4), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="neighbor_size must be >= 1"):
+        knn_cosine(torch.zeros((8, 8, 33), device=cuda), neighbor_size=0)
     assert knn_cosine.launches == before
+
+
+# the generic path: C above 32 (the 4096-d PPM concat at feature resolution
+# among them) or neighbor_size above 9
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,neighbor_size", [
+    ((40, 56, 64), 11), ((90, 160, 4096), 9), ((33, 70, 13), 11),
+    ((20, 30, 33), 9), ((5, 3, 40), 12), ((9, 7, 64), 1)])
+def test_knn_generic_path_matches_plain(cuda, dtype, shape, neighbor_size):
+    rng = np.random.default_rng(2)
+    ft = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    ft[torch.from_numpy(rng.random(shape[:2]) < 0.05)] = 0.0
+    ft = ft.to(cuda, dtype)
+    before = knn_cosine.launches
+    got = knn_cosine(ft, neighbor_size)
+    torch.cuda.synchronize()
+    assert knn_cosine.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == shape[:2]
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               knn_cosine_plain(ft, neighbor_size).cpu()
+                               .numpy(), atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,neighbor_size", [
+    ((30, 40, 64), 11), ((20, 25, 13), 12), ((12, 9, 4096), 9)])
+def test_knn_generic_path_constant_map_gives_neighbour_counts(
+        cuda, shape, neighbor_size):
+    v = np.random.default_rng(3).standard_normal(shape[-1]) * 3.0
+    ft = torch.from_numpy(v.astype(np.float32)).to(cuda)
+    got = knn_cosine(ft.expand(shape), neighbor_size)
+    want = knn_neighbour_counts(shape[0], shape[1], neighbor_size)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=ATOL)
 
 
 def _block_inputs(n, h, w, cin, cmid, cout, d, down, seed=0):
@@ -224,3 +273,54 @@ def test_device_metrics_on_cuda_match_cpu(cuda):
     assert bool(got[3]) and bool(want[3])
     np.testing.assert_allclose([float(v) for v in got[:3]],
                                [float(v) for v in want[:3]], atol=1e-5)
+
+
+def _twin(device, train=False):
+    """The narrow twin of tests/test_torch_model.py, random weights, on
+    ``device`` in channels_last."""
+    model = SegmentationModel(
+        ResNet(block=Bottleneck, layers=(1, 1, 1, 1), planes=(8, 16, 32, 64),
+               stem="deep", output_stride=8),
+        PPMDeepsupEmbedding(num_class=13, fc_dim=256))
+    init_weights(model, torch.Generator().manual_seed(0))
+    return model.train(train).to(device).to(memory_format=torch.channels_last)
+
+
+@pytest.mark.cuda
+def test_bf16_eval_keeps_the_model_dtype(cuda):
+    """Under bf16 autocast, scores and ft leave the decoder and the scale
+    averaging in bf16, as in the JAX package at dtype=bf16; in float32 they
+    stay float32."""
+    model = _twin(cuda)
+    rng = np.random.default_rng(4)
+    pyramid = [torch.from_numpy(rng.standard_normal((1, h, w, 3)).astype(
+        np.float32)).to(cuda) for h, w in ((48, 64), (64, 96))]
+    for dtype in (torch.bfloat16, torch.float32):
+        with torch.no_grad(), torch.autocast(
+                "cuda", dtype=torch.bfloat16,
+                enabled=dtype == torch.bfloat16):
+            out = model(pyramid[0], seg_size=(64, 96))
+            scores, ft = multi_scale_forward(model, pyramid, (64, 96))
+        assert out["scores"].dtype == out["ft"].dtype == dtype
+        assert scores.dtype == ft.dtype == dtype
+        assert scores.shape == (1, 64, 96, 13) and ft.shape == scores.shape
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_on_cuda(cuda):
+    model = _twin(cuda, train=True)
+    opt = two_group_optimizer(model, lr_encoder=poly_schedule(0.02, 10),
+                              lr_decoder=poly_schedule(0.02, 10))
+    step = AnomalyTrainStep(model, opt, guard=True, dtype=torch.bfloat16)
+    rng = np.random.default_rng(5)
+    batch = {"img_data": torch.from_numpy(rng.standard_normal(
+                 (2, 64, 64, 3)).astype(np.float32)).to(cuda),
+             "seg_label": torch.from_numpy(rng.integers(
+                 -1, 13, (2, 8, 8)).astype(np.int32)).to(cuda)}
+    before = [p.detach().clone() for p in model.parameters()]
+    metrics = step(batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(metrics["loss"]).item()
+    assert not metrics["skipped"].item()
+    assert any(not torch.equal(p, b)
+               for p, b in zip(model.parameters(), before))

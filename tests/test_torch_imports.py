@@ -12,6 +12,7 @@ import torch
 
 from open_world_semantic_segmentation_tpu_torch.cli import _common
 from open_world_semantic_segmentation_tpu_torch.cli import eval_ood
+from open_world_semantic_segmentation_tpu_torch.cli import train_embedding
 from open_world_semantic_segmentation_tpu_torch.core.config import (
     load_config)
 from open_world_semantic_segmentation_tpu_torch.core.device import (
@@ -31,6 +32,10 @@ bad = sorted(m for m in sys.modules
              or m.startswith(("jax.", "flax.",
                               "open_world_semantic_segmentation_tpu.")))
 print(len(names), bad)
+for name in ("cli.train_embedding", "cli.train", "data.native",
+             "train.losses", "train.optim", "train.guard", "train.state",
+             "train.checkpoint", "utils.observability"):
+    assert port.__name__ + "." + name in names, name
 """
 
 
@@ -40,7 +45,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(maxsplit=1)
-    assert int(n) >= 25 and bad.strip() == "[]", out.stdout
+    assert int(n) >= 42 and bad.strip() == "[]", out.stdout
 
 
 def test_entry_points_refuse_cuda_without_gpu():
@@ -56,3 +61,13 @@ def test_entry_points_refuse_cuda_without_gpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         eval_ood.main(cfg)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_train_entry_point_refuses_cuda_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: CUDA is a valid choice here")
+    cfg = load_config("configs/train_embedding.yaml")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_embedding.main(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _common.build_anomaly_model(cfg, train=True)

@@ -18,7 +18,7 @@ from open_world_semantic_segmentation_tpu.ops import resize as jresize
 from open_world_semantic_segmentation_tpu.ops.pallas_knn import (
     knn_cosine_pallas)
 from open_world_semantic_segmentation_tpu_torch.ops.knn import (
-    knn_cosine, knn_cosine_plain, knn_neighbour_counts)
+    generic_chunk, knn_cosine, knn_cosine_plain, knn_neighbour_counts)
 from open_world_semantic_segmentation_tpu_torch.openset import scoring
 
 ATOL = 2e-5
@@ -125,6 +125,52 @@ def test_knn_pallas_interpret_gives_neighbour_counts_on_constant_map():
                             interpret=True)
     np.testing.assert_allclose(np.asarray(got), _counts_brute_force(9, 17, 3),
                                rtol=0, atol=ATOL)
+
+
+def _knn_generic_emulation(ft, neighbor_size, chunk, eps=1e-8):
+    """The generic CUDA path's arithmetic, pass for pass, in float64 torch:
+    norms; per chunk of channels the horizontal halo sums of fn to the left
+    (hm) and right (hp); then per pixel fn times the vertical sums of hm
+    above and hp below, accumulated over the chunks and rounded to float32
+    once."""
+    h, w, c = ft.shape
+    halo = neighbor_size - 1
+    norm = ft.double().pow(2).sum(-1).sqrt().clamp(min=eps)
+    fn = ft.double() / norm[..., None]
+    acc = torch.zeros((h, w), dtype=torch.float64)
+    for c0 in range(0, c, chunk):
+        f = fn[..., c0:c0 + chunk]
+        hm = torch.zeros_like(f)
+        hp = torch.zeros_like(f)
+        for d in range(1, min(halo, w - 1) + 1):
+            hm[:, d:] += f[:, :-d]
+            hp[:, :-d] += f[:, d:]
+        b = torch.zeros_like(f)
+        for d in range(1, min(halo, h - 1) + 1):
+            b[d:] += hm[:-d]
+            b[:-d] += hp[d:]
+        acc += (f * b).sum(-1)
+    return acc.float()
+
+
+@pytest.mark.parametrize("shape,neighbor_size,chunk", [
+    ((20, 27, 64), 11, 64), ((20, 27, 64), 11, 7), ((9, 12, 33), 9, 33),
+    ((6, 9, 4096), 9, 1000), ((5, 3, 40), 12, 40), ((7, 8, 13), 1, 13)])
+def test_knn_generic_path_arithmetic_matches_plain(shape, neighbor_size,
+                                                   chunk):
+    """The box-sum decomposition the generic kernels take (any C, any
+    halo, channel chunks) against the plain version."""
+    ft = torch.from_numpy(_ft(shape, 7))
+    ft[2, 1] = 0.0
+    np.testing.assert_allclose(
+        _knn_generic_emulation(ft, neighbor_size, chunk).numpy(),
+        knn_cosine_plain(ft, neighbor_size).numpy(), atol=ATOL)
+
+
+def test_knn_generic_chunk_bounds_the_scratch():
+    assert generic_chunk(90, 160, 4096) == (1 << 22) // (90 * 160)
+    assert generic_chunk(20, 30, 64) == 64
+    assert generic_chunk(4000, 4000, 64) == 1
 
 
 def test_knn_zero_features_are_zero_cos():
