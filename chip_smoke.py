@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU (H100): kernels, the
-StreetHazards open-set eval and DML embedding training, end to end.
+StreetHazards open-set eval, DML embedding training and the Cityscapes NPM
+few-shot eval, end to end.
 
     python3 chip_smoke.py
 
@@ -19,11 +20,12 @@ Phases (any failure exits non-zero and prints no result):
    with neighbor_size 11, at the 4096-d PPM concat of 90x160 and at the
    eval's map with neighbor_size 11, constant maps against the counts,
    timed at 90x160x4096; fused_bottleneck at the seven block
-   geometries of resnet50dilated at the largest pyramid level, at ragged
-   small shapes and at batch 2, dilation 8 and Cmid 1024, in bf16
-   (tolerance 5e-2) and float32 with TF32 off (1e-4), timed in bf16 beside
-   the cuDNN chain of the unfused block, with its three launches (conv1,
-   conv2, conv3 + skip) also timed apart;
+   geometries of resnet50dilated at the largest pyramid level, the six of
+   the DeepLab ResNet-101 (7x7 stem, OS16) at 1024x2048, at ragged small
+   shapes and at batch 2, dilation 8 and Cmid 1024, in bf16 (tolerance
+   5e-2) and float32 with TF32 off (1e-4), timed in bf16 at both
+   backbones' geometries beside the cuDNN chain of the unfused block, with
+   its three launches (conv1, conv2, conv3 + skip) also timed apart;
 4. slice phase: a synthetic StreetHazards tree of 720x1280 images, a
    full-width resnet50dilated + ppm_deepsup_embedding with seeded random
    weights; the dtype after each decoder module and after the averaging
@@ -53,7 +55,22 @@ Phases (any failure exits non-zero and prints no result):
    TF32 off, on cuda and on the CPU, unfused and fused; the score maps must
    agree; and the fused route against the unfused one on cuda in bf16;
    then one train step of a narrow twin in fp32 with TF32 off, cuda
-   against the CPU: loss, updated parameters and BN statistics.
+   against the CPU: loss, updated parameters and BN statistics;
+7. deeplab phase: a synthetic Cityscapes tree of 1024x2048 images (8
+   support images, 6 with car over 11 %; 16 val images with car, truck and
+   bus); the full-width deeplabv3plus_embedding_resnet101 (OS16, 16
+   classes, ASPP rates 6, 12, 18) with seeded random weights and a
+   data-dependent start, 31 of its 33 bottlenecks on the fused route;
+   ``cli.extract_prototypes.main`` (5 shots), then ``cli.eval_embedding.main``
+   in bf16 on the 16 val images, unfused and with ``fused_blocks=True``:
+   launch counts (fused_bottleneck 31 per image in the fused run, 0 in the
+   other; knn_cosine 0), finite metrics, the NPM override on some pixels
+   and not all, wall time per image split into the device batch, loader
+   waits and the host confusion matrix, imgs/s and peak memory; the
+   1024x2048 forward, unfused and fused, alternately six rounds each;
+   ``cli.test_deeplab.main`` with deeplabv3plus_resnet101 (19 classes,
+   unknowns scored) on 4 images; and a 64x128 crop through the embedding
+   model in fp32 with TF32 off, cuda (unfused and fused) against the CPU.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.
@@ -105,6 +122,17 @@ BLOCK_GEOMETRIES = (
     ("layer4.0", 71, 125, 1024, 512, 2048, 2, True, 1),
     ("layer4.1-2", 71, 125, 2048, 512, 2048, 4, False, 2),
 )
+# deeplabv3plus_embedding_resnet101 (7x7 stem, OS16) bottlenecks at the
+# Cityscapes eval's 1024x2048 input, same fields; layer2.0 and layer3.0
+# have stride 2 and are not fused: 31 of the 33 blocks are
+DEEPLAB_BLOCK_GEOMETRIES = (
+    ("layer1.0", 256, 512, 64, 64, 256, 1, True, 1),
+    ("layer1.1-2", 256, 512, 256, 64, 256, 1, False, 2),
+    ("layer2.1-3", 128, 256, 512, 128, 512, 1, False, 3),
+    ("layer3.1-22", 64, 128, 1024, 256, 1024, 1, False, 22),
+    ("layer4.0", 64, 128, 1024, 512, 2048, 1, True, 1),
+    ("layer4.1-2", 64, 128, 2048, 512, 2048, 2, False, 2),
+)
 # ragged small shapes: odd sizes, maps smaller than a patch or the
 # dilation; then layer4 at the smallest pyramid level (304x536) at batch
 # 2, dilation 8 and Cmid 1024, which a one-pass tile with a y1 halo and
@@ -143,6 +171,19 @@ TRAIN_WARMUP = 2
 TRAIN_CHECK_LOSS_RTOL = 1e-4
 TRAIN_CHECK_GRAD_FRAC = 2e-2
 TRAIN_CHECK_BN_TOL = (1e-4, 1e-6)
+# the Cityscapes NPM eval (deeplabv3plus_embedding_resnet101, OS16, 16
+# classes, 5 shots) at full resolution: 8 support images, 6 of them with
+# car over 11 % of the image; 16 val images with car, truck and bus; the
+# closed-set eval (deeplabv3plus_resnet101, 19 classes) on 4 of them
+CITYSCAPES_SIZE = (1024, 2048)
+N_SUPPORT_IMAGES = 8
+N_VAL_IMAGES = 16
+N_CLOSED_SET_IMAGES = 4
+DEEPLAB_ROUTED_BLOCKS = 31
+# the raw label ids of the 19 Cityscapes train classes; car, truck, bus
+CITYSCAPES_TRAIN_RAW_IDS = (7, 8, 11, 12, 13, 17, 19, 20, 21, 22, 23, 24,
+                            25, 26, 27, 28, 31, 32, 33)
+CAR, TRUCK, BUS = 26, 27, 28
 SEED = 0
 DEVICE = "cuda"
 
@@ -407,10 +448,10 @@ def _cudnn_chain(x, ws, d):
 
 def fused_kernel_phase():
     """fused_bottleneck (the CUDA kernel) vs fused_bottleneck_plain on the
-    card at the eval geometries and ragged shapes, bf16 and float32."""
+    card at the geometries of both backbones and ragged shapes, bf16 and
+    float32; then timed at both backbones' geometries."""
     import torch
 
-    from open_world_semantic_segmentation_tpu_torch.ops import fused_block
     from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
         fused_bottleneck, fused_bottleneck_plain)
 
@@ -419,7 +460,8 @@ def fused_kernel_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    shapes = [(1, *g[1:8]) for g in BLOCK_GEOMETRIES] + list(BLOCK_RAGGED)
+    shapes = [(1, *g[1:8]) for g in BLOCK_GEOMETRIES
+              + DEEPLAB_BLOCK_GEOMETRIES] + list(BLOCK_RAGGED)
     max_err = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
@@ -443,14 +485,55 @@ def fused_kernel_phase():
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
 
-    # timing in bf16 at the eval geometries, one image each: the wrapper,
-    # the three launches alone (``kernel_ms``) and each launch apart
-    per_geometry = []
+    per_geometry, totals = time_block_geometries(BLOCK_GEOMETRIES, gen)
+    deeplab_rows, deeplab_totals = time_block_geometries(
+        DEEPLAB_BLOCK_GEOMETRIES, gen)
+    return {
+        "name": "fused_bottleneck",
+        "route": "cuda",
+        "source": "open_world_semantic_segmentation_tpu_torch/csrc/"
+                  "fused_bottleneck.cu",
+        "replaces": "open_world_semantic_segmentation_tpu/ops/"
+                    "pallas_block.py:211",
+        "launches": None,                       # filled from the main path
+        "max_abs_err": max_err["bfloat16"],
+        "max_abs_err_float32": max_err["float32"],
+        # sums over the 15 fused blocks of one forward at 568x1000, bf16
+        "ms": totals["ms"],
+        "kernel_ms": totals["kernel_ms"],
+        "conv1_ms": totals["conv1_ms"],
+        "conv2_ms": totals["conv2_ms"],
+        "conv3_ms": totals["conv3_ms"],
+        "plain_ms": totals["plain_ms"],
+        "bound_ms": totals["bound_ms"],
+        "bound_by": totals["bound_by"],
+        "library_ms": totals["library_ms"],     # the cuDNN chain
+        "per_geometry": per_geometry,
+        # the 31 fused blocks of one deeplabv3plus_embedding_resnet101
+        # forward at 1024x2048 (the NPM eval), bf16; launches on that path
+        # are filled in from its fused run
+        "deeplab": {**deeplab_totals, "launches": None,
+                    "per_geometry": deeplab_rows},
+    }
+
+
+def time_block_geometries(geometries, gen):
+    """Time fused_bottleneck in bf16 at ``geometries``, one image each: the
+    wrapper, the three launches alone (``kernel_ms``) and each launch
+    apart, the plain version, the cuDNN chain and the bound. Returns the
+    rows and their sums over the blocks of one forward."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.ops import fused_block
+    from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
+        fused_bottleneck, fused_bottleneck_plain)
+
+    rows = []
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     totals = dict.fromkeys(("ms", "kernel_ms", "conv1_ms", "conv2_ms",
                             "conv3_ms", "plain_ms", "library_ms", "ops_ms",
                             "bytes_ms", "bound_ms"), 0.0)
-    for name, h, w, cin, cmid, cout, d, down, count in BLOCK_GEOMETRIES:
+    for name, h, w, cin, cmid, cout, d, down, count in geometries:
         x, ws = _block_inputs(gen, 1, h, w, cin, cmid, cout, down,
                               torch.bfloat16)
         launch, _ = fused_block.fused_bottleneck_launcher(x, *ws,
@@ -475,33 +558,13 @@ def fused_kernel_phase():
         row.update(ops_ms=t_ops, bytes_ms=t_bytes,
                    bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes")
-        log(f"fused_bottleneck {name}: " + json.dumps(row))
-        per_geometry.append(row)
+        log(f"fused_bottleneck {name} {[h, w]}: " + json.dumps(row))
+        rows.append(row)
         for key in totals:
             totals[key] += count * row[key]
-    return {
-        "name": "fused_bottleneck",
-        "route": "cuda",
-        "source": "open_world_semantic_segmentation_tpu_torch/csrc/"
-                  "fused_bottleneck.cu",
-        "replaces": "open_world_semantic_segmentation_tpu/ops/"
-                    "pallas_block.py:211",
-        "launches": None,                       # filled from the main path
-        "max_abs_err": max_err["bfloat16"],
-        "max_abs_err_float32": max_err["float32"],
-        # sums over the 15 fused blocks of one forward at 568x1000, bf16
-        "ms": totals["ms"],
-        "kernel_ms": totals["kernel_ms"],
-        "conv1_ms": totals["conv1_ms"],
-        "conv2_ms": totals["conv2_ms"],
-        "conv3_ms": totals["conv3_ms"],
-        "plain_ms": totals["plain_ms"],
-        "bound_ms": totals["bound_ms"],
-        "bound_by": ("operations" if totals["ops_ms"] >= totals["bytes_ms"]
-                     else "bytes"),
-        "library_ms": totals["library_ms"],     # the cuDNN chain
-        "per_geometry": per_geometry,
-    }
+    totals["bound_by"] = ("operations" if totals["ops_ms"]
+                          >= totals["bytes_ms"] else "bytes")
+    return rows, totals
 
 
 # ---------------------------------------------------------------------------
@@ -1120,6 +1183,362 @@ def device_check(cfg):
 
 
 # ---------------------------------------------------------------------------
+def write_cityscapes_tree(root, counts, size, seed):
+    """Cityscapes-format tree (``leftImg8bit/<split>/synth/*_leftImg8bit.png``
+    and ``gtFine/<split>/synth/*_gtFine_labelIds.png``) with ``counts[split]``
+    images per split: raw-id labels, blocks of the 19 train classes over
+    road, then the featured blocks on top: in ``train`` car over h/3 x w/3
+    in all but every fourth image, in ``val`` a car, a truck and a bus block
+    in every image. Images: one colour per raw id plus noise."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    h, w = size
+    palette = rng.integers(0, 255, (34, 3))
+    ids = np.array(CITYSCAPES_TRAIN_RAW_IDS)
+    with ThreadPoolExecutor(8) as pool:
+        saves = []
+        for split, n in counts.items():
+            for i in range(n):
+                lab = np.full((h, w), 7, np.uint8)
+                for _ in range(12):
+                    r0 = rng.integers(0, h - h // 10)
+                    c0 = rng.integers(0, w - w // 10)
+                    lab[r0:r0 + rng.integers(h // 15, h // 3),
+                        c0:c0 + rng.integers(w // 15, w // 3)] = \
+                        rng.choice(ids)
+                if split == "train":
+                    featured = [(CAR, h // 3, w // 3)] if i % 4 != 3 else []
+                else:
+                    featured = [(CAR, h // 4, w // 4), (TRUCK, h // 5, w // 6),
+                                (BUS, h // 5, w // 6)]
+                for raw, bh, bw in featured:
+                    r0, c0 = rng.integers(0, h - bh), rng.integers(0, w - bw)
+                    lab[r0:r0 + bh, c0:c0 + bw] = raw
+                img = palette[lab] + rng.normal(0, 20, (h, w, 3))
+                img = np.clip(img, 0, 255).astype(np.uint8)
+                stem = f"synth_{i:06d}_000019"
+                for kind, suffix, arr, mode in (
+                        ("leftImg8bit", "leftImg8bit", img, "RGB"),
+                        ("gtFine", "gtFine_labelIds", lab, "L")):
+                    path = os.path.join(root, kind, split, "synth",
+                                        f"{stem}_{suffix}.png")
+                    os.makedirs(os.path.dirname(path), exist_ok=True)
+                    saves.append(pool.submit(Image.fromarray(arr, mode).save,
+                                             path, compress_level=1))
+        for save in saves:
+            save.result()
+    return root
+
+
+def write_deeplab_checkpoint(cfg, path, seed):
+    """Seeded random weights for ``cfg``'s DeepLab model, saved as the
+    reference's ``{"model_state": ...}`` .pth, with the data-dependent start
+    of ``write_random_checkpoint``: BN running statistics from one forward
+    over the first eight val images, and the last 1x1 conv shifted and
+    scaled so that each output channel has mean 0 and std 0.8 over them
+    (the scale of the one-hot centers)."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli.main_deeplab import (
+        build_deeplab_model, get_transforms, get_val_dataset,
+        init_or_load_deeplab)
+
+    model, _ = build_deeplab_model(cfg, DEVICE)
+    init_or_load_deeplab(model, seed=seed)
+    ds = get_val_dataset(cfg, get_transforms(cfg.DEEPLAB.crop_size)[1])
+    # BN over the 1x1 image-pool branch sees one value per image: 8 images,
+    # so its variance is not that of two
+    img = torch.from_numpy(np.stack([ds[i][0] for i in range(
+        min(8, len(ds)))])).to(DEVICE)
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = None          # running stats = this batch's
+    with torch.no_grad():
+        model.train()(img)
+        out = model.eval()(img)
+        out = (out[2] if isinstance(out, tuple) else out).flatten(0, 2)
+        mean, std = out.mean(0), out.std(0)
+        last = model.classifier.classifier[-1]
+        last.weight.mul_((0.8 / std)[:, None, None, None])
+        last.bias.sub_(mean).mul_(0.8 / std)
+    torch.save({"model_state": model.state_dict()}, path)
+    return path
+
+
+def deeplab_phase(root):
+    """The Cityscapes NPM few-shot eval and the closed-set DeepLab eval at
+    full width and resolution; see the module note. Returns the summaries
+    and the fused run's fused_bottleneck launches."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli import (
+        eval_embedding, extract_prototypes, test_deeplab)
+    from open_world_semantic_segmentation_tpu_torch.cli.main_deeplab import (
+        build_deeplab_model)
+    from open_world_semantic_segmentation_tpu_torch.core.config import (
+        load_config)
+    from open_world_semantic_segmentation_tpu_torch.models.resnet import (
+        Bottleneck)
+    from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
+        fused_bottleneck)
+    from open_world_semantic_segmentation_tpu_torch.ops.knn import knn_cosine
+
+    tree = os.path.join(root, "cityscapes")
+    tic = time.perf_counter()
+    write_cityscapes_tree(tree, {"train": N_SUPPORT_IMAGES,
+                                 "val": N_VAL_IMAGES}, CITYSCAPES_SIZE,
+                          SEED + 2)
+    log(f"cityscapes tree: {N_SUPPORT_IMAGES} + {N_VAL_IMAGES} images of "
+        f"{CITYSCAPES_SIZE} in {time.perf_counter() - tic:.1f} s")
+    cfg = load_config("configs/cityscapes_embedding.yaml", [
+        "DATASET.root_dataset", tree, "FEWSHOT.prototype_file",
+        os.path.join(root, "prototype_car_5_shot.json")])
+    model, _ = build_deeplab_model(cfg, DEVICE, fused_blocks=True)
+    verdicts = {name: m.fused_tile is not None
+                for name, m in model.backbone.named_modules()
+                if isinstance(m, Bottleneck)}
+    del model
+    log("deeplab fused route per block: " + json.dumps(verdicts))
+    if sum(verdicts.values()) != DEEPLAB_ROUTED_BLOCKS:
+        raise AssertionError(f"{sum(verdicts.values())} blocks routed")
+    cfg.MODEL.weights_encoder = write_deeplab_checkpoint(
+        cfg, os.path.join(root, "deeplab_embedding.pth"), SEED)
+
+    kernels = {"knn_cosine": knn_cosine, "fused_bottleneck": fused_bottleneck}
+    tic = time.perf_counter()
+    protos = extract_prototypes.main(cfg, torch.bfloat16, device=DEVICE)
+    log(f"extract_prototypes: {len(protos)} shots in "
+        f"{time.perf_counter() - tic:.2f} s, norms "
+        f"{[float(np.linalg.norm(p)) for p in protos]}")
+    if len(protos) != cfg.FEWSHOT.shots or not np.isfinite(protos).all():
+        raise AssertionError(f"extracted {len(protos)} prototypes")
+
+    # warm-up of both routes (cuDNN heuristics, the first fused calls)
+    for fused in (False, True):
+        eval_embedding.main(cfg, torch.bfloat16, max_images=2, device=DEVICE,
+                            fused_blocks=fused)
+    runs = {"npm": (False, 0), "npm_fused": (
+        True, DEEPLAB_ROUTED_BLOCKS * N_VAL_IMAGES)}
+    summaries, launches = {}, {}
+    for run, (fused, want) in runs.items():
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        result = eval_embedding.main(cfg, torch.bfloat16, device=DEVICE,
+                                     fused_blocks=fused)
+        launches[run] = {k: fn.launches for k, fn in kernels.items()}
+        n = result["images"]
+        summary = {k: float(result[k]) for k in (
+            "Overall Acc", "Mean Acc", "FreqW Acc", "Mean IoU")}
+        split = {k: result[k] for k in ("device_s_per_img", "wait_s_per_img",
+                                        "metric_s_per_img")}
+        split["other_s_per_img"] = result["seconds"] / n - sum(split.values())
+        summary.update(images=n, seconds=result["seconds"],
+                       imgs_per_s=n / result["seconds"], **split,
+                       novel_pixels=result["novel_pixels"],
+                       pixels=result["pixels"],
+                       peak_memory_bytes=torch.cuda.max_memory_allocated())
+        log(f"eval_embedding {run}: " + json.dumps(summary) + " launches "
+            + json.dumps(launches[run]))
+        if n != N_VAL_IMAGES:
+            raise AssertionError(f"{run}: evaluated {n} images")
+        for key, value in summary.items():
+            if not np.isfinite(value):
+                raise AssertionError(f"{run}: {key} = {value}")
+        if not 0 < summary["novel_pixels"] < summary["pixels"]:
+            raise AssertionError(f"{run}: the NPM override took "
+                                 f"{summary['novel_pixels']} pixels")
+        if launches[run] != {"knn_cosine": 0, "fused_bottleneck": want}:
+            raise AssertionError(f"{run}: launches {launches[run]}, want "
+                                 f"fused_bottleneck {want}")
+        summaries[run] = summary
+    log(f"npm fused run: fused_bottleneck launches "
+        f"{launches['npm_fused']['fused_bottleneck']} "
+        f"({DEEPLAB_ROUTED_BLOCKS} per image, {N_VAL_IMAGES} images)")
+    summaries["forward_comparison"] = deeplab_forward_comparison(cfg)
+
+    # the closed-set eval of deeplabv3plus_resnet101, unknowns scored
+    ccfg = load_config("configs/cityscapes_closed.yaml", [
+        "DATASET.root_dataset", tree, "DEEPLAB.unknown_scores", "True"])
+    ccfg.DEEPLAB.ckpt = write_deeplab_checkpoint(
+        ccfg, os.path.join(root, "deeplab_closed.pth"), SEED + 1)
+    score, ood = test_deeplab.main(ccfg, torch.bfloat16,
+                                   max_images=N_CLOSED_SET_IMAGES,
+                                   device=DEVICE)
+    closed = {k: float(score[k]) for k in ("Overall Acc", "Mean Acc",
+                                           "FreqW Acc", "Mean IoU")}
+    closed.update(ood or {}, images=score["images"],
+                  seconds=score["seconds"])
+    log("test_deeplab deeplabv3plus_resnet101: " + json.dumps(closed))
+    if score["images"] != N_CLOSED_SET_IMAGES or ood is None or not all(
+            np.isfinite(v) for v in closed.values()):
+        raise AssertionError(f"test_deeplab: {closed}")
+    summaries["closed_set"] = closed
+    deeplab_device_check(cfg)
+    return summaries, launches["npm_fused"]["fused_bottleneck"]
+
+
+def deeplab_forward_comparison(cfg, rounds=6):
+    """The 1024x2048 forward of one image (bf16, CUDA events, no data
+    movement, NPM or metrics), unfused and with ``fused_blocks=True``,
+    timed alternately ``rounds`` times each; every round and the medians."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli.main_deeplab import (
+        build_deeplab_model, get_transforms, get_val_dataset,
+        init_or_load_deeplab)
+
+    models = {}
+    for fused in (False, True):
+        model, _ = build_deeplab_model(cfg, DEVICE, fused_blocks=fused)
+        models[fused] = init_or_load_deeplab(model,
+                                             cfg.MODEL.weights_encoder)
+    ds = get_val_dataset(cfg, get_transforms(cfg.DEEPLAB.crop_size)[1])
+    x = torch.from_numpy(ds[0][0][None]).to(DEVICE)
+
+    def forward(model):
+        def run():
+            with torch.inference_mode(), torch.autocast(
+                    DEVICE, dtype=torch.bfloat16):
+                model(x)
+        return run
+
+    times = {False: [], True: []}
+    for fused in [False, True, True, False] * (rounds // 2):
+        times[fused].append(cuda_time_ms(forward(models[fused]), iters=5))
+    result = {("fused" if fused else "unfused"): {
+        "forward_ms": t, "forward_ms_median": float(np.median(t))}
+        for fused, t in times.items()}
+    result["forward_ms_gain_median"] = (
+        result["unfused"]["forward_ms_median"]
+        - result["fused"]["forward_ms_median"])
+    log(f"deeplab forward comparison, {list(CITYSCAPES_SIZE)}, batch 1: "
+        + json.dumps(result))
+    return result
+
+
+def deeplab_device_check(cfg):
+    """The full-width embedding model over a 64x128 crop of the first val
+    image in fp32, TF32 off, on cuda (unfused and fused) against the CPU:
+    logits and features within DEVICE_CHECK_RTOL of their largest
+    magnitude, the argmax agreeing on 99 % of the pixels. Then the NPM
+    stage on the CPU forward's outputs, on cuda against the CPU
+    (``deeplab_npm_check``)."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli.main_deeplab import (
+        build_deeplab_model, get_transforms, get_val_dataset,
+        init_or_load_deeplab)
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = get_val_dataset(cfg, get_transforms(cfg.DEEPLAB.crop_size)[1])
+    x = np.ascontiguousarray(ds[0][0][None, :64, :128])
+    labels = np.ascontiguousarray(ds[0][1][:64, :128]).astype(np.int32)
+
+    def forward(device, fused):
+        model, _ = build_deeplab_model(cfg, device, fused_blocks=fused)
+        init_or_load_deeplab(model, cfg.MODEL.weights_encoder)
+        with torch.no_grad():
+            logits, _, features = model(torch.from_numpy(x).to(device))
+        return {"logits": logits.cpu().numpy(),
+                "features": features.cpu().numpy()}
+
+    cpu = forward("cpu", False)
+    for fused in (False, True):
+        got = forward(DEVICE, fused)
+        name = "fused" if fused else "unfused"
+        for key in ("logits", "features"):
+            err = float(np.abs(got[key] - cpu[key]).max())
+            bound = DEVICE_CHECK_RTOL * float(np.abs(cpu[key]).max())
+            log(f"deeplab device check fp32 {name} cuda vs cpu {key}: max "
+                f"|diff| {err:.4g} (bound {bound:.4g})")
+            if not err <= bound:
+                raise AssertionError(f"deeplab {name} {key}: {err}")
+        same = float((got["logits"].argmax(-1)
+                      == cpu["logits"].argmax(-1)).mean())
+        log(f"deeplab device check fp32 {name} argmax agreement {same:.5f}")
+        if same < 0.99:
+            raise AssertionError(f"deeplab {name} argmax agreement {same}")
+    deeplab_npm_check(cfg, cpu, labels)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+
+
+def deeplab_npm_check(cfg, outputs, labels):
+    """The eval's NPM stage (``npm_override`` after the argmax,
+    ``npm_label_remap``, the uint8 readback, ``StreamSegMetrics``) on the
+    same inputs, on cuda against the CPU: ``outputs`` (the CPU forward's
+    logits and features of one image), ``labels`` (its train ids), for the
+    5-shot prototype and for one that fires (the CPU features at the
+    pixel of the lowest base logit), with the features and logits in
+    float32 and cast to bf16 (the eval's dtype). Remapped labels and
+    metrics must be equal; predictions too, except at pixels where the
+    CPU's distance lies within DEVICE_CHECK_RTOL of its largest magnitude
+    of the threshold or of the largest base logit (a rounding apart)."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli.main_deeplab import (
+        to_host_async)
+    from open_world_semantic_segmentation_tpu_torch.fewshot.prototypes import (
+        load_prototypes, npm_label_remap, npm_override)
+    from open_world_semantic_segmentation_tpu_torch.metrics.segmentation \
+        import StreamSegMetrics
+
+    novel_id = outputs["logits"].shape[-1]       # 16
+    threshold = cfg.FEWSHOT.npm_dis_threshold
+    logits, features = outputs["logits"][0], outputs["features"][0]
+    low = np.unravel_index(logits.max(-1).argmin(), logits.shape[:2])
+    prototypes = {"5-shot": load_prototypes(cfg.FEWSHOT.prototype_file),
+                  "firing": np.ascontiguousarray(features[low])}
+
+    def npm(device, dtype, prototype):
+        f = torch.from_numpy(features).to(device, dtype)
+        lg = torch.from_numpy(logits).to(device, dtype)
+        preds, dis = npm_override(
+            lg.argmax(-1), f, lg, torch.from_numpy(prototype).to(device),
+            novel_id=novel_id, dis_threshold=threshold)
+        remapped = npm_label_remap(torch.from_numpy(labels).to(device),
+                                   novel_id=novel_id)
+        host = to_host_async([preds.to(torch.uint8),
+                              remapped.to(torch.uint8)])()
+        metrics = StreamSegMetrics(novel_id + 1)
+        metrics.update(host[1][None].astype(np.int64), host[0][None])
+        return (host[0], host[1], metrics.get_results(),
+                dis.float().cpu().numpy(), lg.float().max(-1).values.cpu())
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, prototype in prototypes.items():
+            cpu = npm("cpu", dtype, prototype)
+            got = npm(DEVICE, dtype, prototype)
+            dis, maxlogit = cpu[3], cpu[4].numpy()
+            margin = DEVICE_CHECK_RTOL * float(np.abs(dis).max())
+            near = ((np.abs(dis - threshold) <= margin)
+                    | (np.abs(dis - maxlogit) <= margin))
+            differ = got[0] != cpu[0]
+            fired = int((cpu[0] == novel_id).sum())
+            log(f"deeplab npm check {name} {str(dtype)[6:]}: override "
+                f"{fired} of {cpu[0].size} pixels on the cpu, "
+                f"{int((got[0] == novel_id).sum())} on cuda, predictions "
+                f"differ at {int(differ.sum())} ({int(near.sum())} within "
+                f"{margin:.4g} of a bound)")
+            if (differ & ~near).any():
+                raise AssertionError(f"npm {name} {dtype}: predictions differ")
+            if not np.array_equal(got[1], cpu[1]):
+                raise AssertionError(f"npm {name} {dtype}: remapped labels")
+            if not differ.any() and repr(got[2]) != repr(cpu[2]):
+                raise AssertionError(f"npm {name} {dtype}: metrics differ")
+            if name == "firing" and not 0 < fired < cpu[0].size:
+                raise AssertionError(f"npm {name} {dtype}: override took "
+                                     f"{fired} pixels")
+
+
+# ---------------------------------------------------------------------------
 def main():
     import torch
 
@@ -1146,11 +1565,13 @@ def main():
                                    cfg.MODEL.weights_decoder))
         device_check(cfg)
         train_check = train_step_check()
+        deeplab, deeplab_launches = deeplab_phase(root)
     # launches on the main path: knn_cosine in the knn run, fused_bottleneck
     # in the fused run (the runs that take each kernel's path)
     kernels[0]["launches"] = launches["knn"]["knn_cosine"]
     set_path_dtype(kernels[0], summaries.pop("knn_input_dtype"))
     kernels[1]["launches"] = launches["dissum_fused"]["fused_bottleneck"]
+    kernels[1]["deeplab"]["launches"] = deeplab_launches
     log(f"gpu: {gpu}; eval summaries: " + json.dumps(summaries))
     log(f"gpu: {gpu}; train: s/step {train['s_per_step_median']}, imgs/s "
         f"{train['imgs_per_s']}, loader wait s/step "
@@ -1158,6 +1579,7 @@ def main():
         f"{train['peak_memory_bytes']} bytes, skipped {train['skipped']}, "
         f"losses {[e['loss'] for e in train['per_step']]}; train step check "
         + json.dumps(train_check))
+    log(f"gpu: {gpu}; deeplab: " + json.dumps(deeplab))
     log(f"total {time.perf_counter() - tic:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -8,14 +8,13 @@ StreetHazards open-set eval model. Other arch names raise
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 import torch.nn as nn
 
 from .decoders import PPMDeepsupEmbedding
-from .layers import BNConfig
+from .layers import BNConfig, init_module
 from .resnet import resnet50
 
 # decoder BN bias of the reference's ModelBuilder.weights_init
@@ -83,7 +82,6 @@ class ModelBuilder:
         return SegmentationModel(encoder, decoder)
 
 
-@torch.no_grad()
 def init_weights(model: SegmentationModel, generator: torch.Generator):
     """Random initialisation of the JAX package's (and the reference's)
     schemes, drawn from ``generator``:
@@ -93,21 +91,7 @@ def init_weights(model: SegmentationModel, generator: torch.Generator):
     - BN: weight 1, bias 0 (encoder) or 1e-4 (decoder); running stats
       mean 0, var 1.
     """
-    for part, fan_out, bn_bias in ((model.encoder, True, 0.0),
-                                   (model.decoder, False, DECODER_BN_BIAS)):
-        for m in part.modules():
-            if isinstance(m, nn.Conv2d):
-                kh, kw = m.kernel_size
-                fan = kh * kw * (m.out_channels if fan_out
-                                 else m.in_channels // m.groups)
-                std = math.sqrt(2.0 / fan)
-                w = torch.empty(m.weight.shape).normal_(0.0, std,
-                                                        generator=generator)
-                m.weight.copy_(w)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
-                m.weight.fill_(1.0)
-                m.bias.fill_(bn_bias)
-                m.reset_running_stats()
+    init_module(model.encoder, generator, fan_out=True)
+    init_module(model.decoder, generator, fan_out=False,
+                bn_bias=DECODER_BN_BIAS)
     return model

@@ -14,7 +14,9 @@ times larger).
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -87,3 +89,28 @@ def Conv(in_channels: int, out_channels: int, kernel_size: int = 1,
     counterpart."""
     return nn.Conv2d(in_channels, out_channels, kernel_size, stride, padding,
                      dilation, groups, bias=use_bias)
+
+
+@torch.no_grad()
+def init_module(module: nn.Module, generator: torch.Generator, *,
+                fan_out: bool, bn_bias: float = 0.0):
+    """Random initialisation of the JAX package's schemes, drawn from
+    ``generator`` in module order: convs normal(0, sqrt(2 / fan)) with fan
+    kh * kw * out_channels (``fan_out``) or kh * kw * in_channels / groups,
+    conv biases zero; BN weight 1, bias ``bn_bias``, running mean 0 and
+    var 1."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            kh, kw = m.kernel_size
+            fan = kh * kw * (m.out_channels if fan_out
+                             else m.in_channels // m.groups)
+            w = torch.empty(m.weight.shape).normal_(
+                0.0, math.sqrt(2.0 / fan), generator=generator)
+            m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.weight.fill_(1.0)
+            m.bias.fill_(bn_bias)
+            m.reset_running_stats()
+    return module

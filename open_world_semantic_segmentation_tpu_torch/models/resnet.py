@@ -2,14 +2,17 @@
 
 Covers the CSAIL "deep stem" variant (three 3x3 convs, 128 channels into
 layer1) that the anomaly stack uses, with the dilation surgery of its
-``ResnetDilated``; the torchvision 7x7 stem is not ported yet. Dilation
-follows from ``output_stride`` at construction: when a stage's stride
-becomes 1, its first block keeps the previous dilation and later blocks use
-the new one, which is what both reference mechanisms produce.
+``ResnetDilated``, and the torchvision 7x7 stem (one 7x7 stride-2 conv, 64
+channels into layer1) with ``replace_stride_with_dilation`` that the DeepLab
+stack uses (``resnet_deeplab``). Dilation follows from ``output_stride`` at
+construction: when a stage's stride becomes 1, its first block keeps the
+previous dilation and later blocks use the new one, which is what both
+reference mechanisms produce.
 
 Attribute names are the reference's (``conv1``, ``bn1``, ``layer3.0.conv2``,
 ``layer3.0.downsample.0``, ...), so its ``encoder_epoch_*.pth`` loads with
-``load_state_dict``. The forward returns the four stage outputs.
+``load_state_dict``, and so does a DeepLab ``model_state`` under
+``backbone.``. The forward returns the four stage outputs.
 
 ``fused_blocks=True`` routes every eligible ``Bottleneck`` (eval mode,
 stride 1, one group, a geometry ``ops.fused_block.fused_block_tile``
@@ -177,16 +180,21 @@ class ResNet(nn.Module):
         if fused_blocks and block is not Bottleneck:
             raise ValueError("fused_blocks routes Bottleneck blocks only")
         fused = {"fused": True} if fused_blocks else {}
-        if stem != "deep":
-            raise NotImplementedError(
-                f"stem {stem!r} is not ported yet (ROADMAP.md queues it)")
-        self.conv1 = nn.Conv2d(3, 64, 3, 2, padding=1, bias=False)
-        self.bn1 = bn.make(64)
-        self.conv2 = nn.Conv2d(64, 64, 3, padding=1, bias=False)
-        self.bn2 = bn.make(64)
-        self.conv3 = nn.Conv2d(64, 128, 3, padding=1, bias=False)
-        self.bn3 = bn.make(128)
-        inplanes = 128
+        if stem not in ("deep", "7x7"):
+            raise ValueError(f"unknown stem {stem!r}")
+        self.stem = stem
+        if stem == "deep":
+            self.conv1 = nn.Conv2d(3, 64, 3, 2, padding=1, bias=False)
+            self.bn1 = bn.make(64)
+            self.conv2 = nn.Conv2d(64, 64, 3, padding=1, bias=False)
+            self.bn2 = bn.make(64)
+            self.conv3 = nn.Conv2d(64, 128, 3, padding=1, bias=False)
+            self.bn3 = bn.make(128)
+            inplanes = 128
+        else:
+            self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
+            self.bn1 = bn.make(64)
+            inplanes = 64
         self.relu = nn.ReLU(inplace=True)
 
         prev_dilation = 1
@@ -213,8 +221,9 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = self.relu(self.bn1(self.conv1(x)))
-        x = self.relu(self.bn2(self.conv2(x)))
-        x = self.relu(self.bn3(self.conv3(x)))
+        if self.stem == "deep":
+            x = self.relu(self.bn2(self.conv2(x)))
+            x = self.relu(self.bn3(self.conv3(x)))
         x = max_pool_3x3_s2_p1(x, channel_last=False)
         outs = []
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
@@ -225,3 +234,16 @@ class ResNet(nn.Module):
 
 def resnet50(**kw):
     return ResNet(block=Bottleneck, layers=(3, 4, 6, 3), **kw)
+
+
+def resnet101(**kw):
+    return ResNet(block=Bottleneck, layers=(3, 4, 23, 3), **kw)
+
+
+def resnet_deeplab(depth: int = 101, output_stride: int = 16,
+                   bn: BNConfig = BNConfig(momentum=0.01), **kw):
+    """torchvision-stem ResNet as the DeepLab stack uses it (OS16 default;
+    the reference sets the backbone's BN momentum to 0.01)."""
+    layers = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}[depth]
+    return ResNet(block=Bottleneck, layers=layers, stem="7x7",
+                  output_stride=output_stride, bn=bn, **kw)

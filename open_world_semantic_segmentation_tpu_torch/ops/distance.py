@@ -32,11 +32,14 @@ def one_hot_center_logits(x: torch.Tensor, magnitude: float = 3.0):
     return 2.0 * magnitude * x - magnitude * magnitude - x2
 
 
-def prototype_distance(features: torch.Tensor, prototype: torch.Tensor):
+def prototype_distance(features: torch.Tensor, prototype):
     """NPM score ``-||f_p - proto||^2``: prototype (C,) -> (...,), or
-    (P, C) -> (..., P)."""
-    prototype = torch.as_tensor(prototype, dtype=features.dtype,
-                                device=features.device)
+    (P, C) -> (..., P). Computed in the wider of the two dtypes, as the JAX
+    package promotes them: bf16 features against a float32 prototype give
+    a float32 score."""
+    prototype = torch.as_tensor(prototype, device=features.device)
+    dtype = torch.promote_types(features.dtype, prototype.dtype)
+    features, prototype = features.to(dtype), prototype.to(dtype)
     if prototype.dim() == 1:
         d = features - prototype
         return -(d * d).sum(-1)

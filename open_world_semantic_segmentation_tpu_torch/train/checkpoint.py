@@ -12,6 +12,11 @@
   numpy arrays, which needs no flax) and maps it into the port's encoder
   and decoder state dicts with ``train/convert.py``. Unpickling can run
   code: load only files this project wrote.
+- ``load_deeplab_state`` reads a DeepLab checkpoint into the port's state
+  dict: the reference's ``.pth`` (``{"model_state": ..., ...}`` or a bare
+  state dict) as it is, or the JAX package's pickle (its ``"tree"`` holds
+  the variables, or a train state with ``params`` and ``batch_stats``)
+  through ``train/convert.py deeplab_state_dict_from_jax``.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from .convert import state_dict_from_jax
+from .convert import deeplab_state_dict_from_jax, state_dict_from_jax
 
 
 def save_epoch_checkpoint(model, encoder_path: str, decoder_path: str):
@@ -45,3 +50,22 @@ def load_jax_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor],
     tree = payload["tree"]
     return state_dict_from_jax({"params": tree["params"],
                                 "batch_stats": tree.get("batch_stats", {})})
+
+
+def load_deeplab_state(path: str) -> Dict[str, torch.Tensor]:
+    """A DeepLab checkpoint (reference ``.pth`` or JAX pickle) -> the
+    port's DeepLab state dict."""
+    if path.endswith(".pth"):
+        ckpt = torch.load(path, map_location="cpu")
+        state = ckpt.get("model_state", ckpt)
+        # DataParallel prefixes; the embedding wrapper's one-hot centers
+        # are rebuilt from the class count
+        state = {k[len("module."):] if k.startswith("module.") else k: v
+                 for k, v in state.items()}
+        state.pop("centers", None)
+        return state
+    with open(path, "rb") as f:
+        tree = pickle.load(f)["tree"]
+    return deeplab_state_dict_from_jax({
+        "params": tree["params"],
+        "batch_stats": tree.get("batch_stats", {})})

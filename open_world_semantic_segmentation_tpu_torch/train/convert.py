@@ -7,8 +7,16 @@ and decoder state dicts of the port, whose keys are the reference's. Conv
 kernels go HWIO -> OIHW; BN ``scale/bias`` (params) and ``mean/var``
 (batch_stats) go to ``weight/bias/running_mean/running_var``.
 
-The reference's own ``encoder_epoch_*.pth`` / ``decoder_epoch_*.pth`` need
-no conversion: they load into the port with ``load_state_dict``.
+``deeplab_state_dict_from_jax`` does the same for the DeepLab models
+(the inverse of the JAX package's ``convert_deeplab_checkpoint``): the
+backbone's ``stem1`` becomes ``backbone.conv1`` / ``bn1``, the head goes
+under ``classifier.`` with the reference's names. The ASPP projection's
+one (1, 1, 1280, 256) kernel is the same parameter whether the JAX package
+computes it per branch or over the concat.
+
+The reference's own ``encoder_epoch_*.pth`` / ``decoder_epoch_*.pth`` and
+DeepLab ``model_state`` need no conversion: they load into the port with
+``load_state_dict``.
 """
 
 from __future__ import annotations
@@ -38,6 +46,36 @@ _DECODER_RULES = (
     (r"deepsup/cbr_deepsup/bn", "cbr_deepsup.1"),
     (r"deepsup/conv_last_deepsup/conv", "conv_last_deepsup"),
 )
+# the ASPP (either head), relative to its module prefix
+_ASPP_RULES = (
+    (r"aspp/b([0-3])/conv", r"convs.\1.0"),
+    (r"aspp/b([0-3])/bn", r"convs.\1.1"),
+    (r"aspp/pool/conv", "convs.4.1"),
+    (r"aspp/pool/bn", "convs.4.2"),
+    (r"aspp/project/conv", "project.0"),
+    (r"aspp/project/bn", "project.1"),
+)
+
+
+def _deeplab_head_rules(aspp: str, fuse: int):
+    """The head under ``classifier.``: the ASPP at prefix ``aspp``, the
+    3x3 fuse conv and BN at ``classifier.classifier.{fuse, fuse + 1}`` and
+    the classifier conv at ``fuse + 3``."""
+    return tuple((pattern, aspp + repl) for pattern, repl in _ASPP_RULES) + (
+        (r"fuse/conv", f"classifier.classifier.{fuse}"),
+        (r"fuse/bn", f"classifier.classifier.{fuse + 1}"),
+        (r"classifier/conv", f"classifier.classifier.{fuse + 3}"),
+    )
+
+
+# the V3+ head (DeepLabHeadV3Plus): low-level projection, ASPP, then one
+# Sequential of fuse and classifier
+_DEEPLAB_V3PLUS_RULES = (
+    (r"project/conv", "classifier.project.0"),
+    (r"project/bn", "classifier.project.1"),
+) + _deeplab_head_rules("classifier.aspp.", 0)
+# the V3 head (DeepLabHead): one Sequential, ASPP at index 0
+_DEEPLAB_V3_RULES = _deeplab_head_rules("classifier.classifier.0.", 1)
 _LEAVES = {
     ("params", "kernel"): "weight",
     ("params", "bias"): "bias",
@@ -91,3 +129,21 @@ def state_dict_from_jax(variables) -> Tuple[Dict[str, torch.Tensor],
     dec = _convert_part(params["decoder"], stats.get("decoder", {}),
                         _DECODER_RULES)
     return enc, dec
+
+
+def deeplab_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax variables of a JAX ``DeepLabV3Plus`` or
+    ``DeepLabV3PlusEmbedding`` (numpy arrays, ``backbone`` and ``head``)
+    -> the port's DeepLab state dict. A V3+ head (it has ``project``) or
+    a V3 head is told apart by its parameters."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    backbone_rules = tuple((pattern, "backbone." + repl)
+                           for pattern, repl in _ENCODER_RULES)
+    head = params["head"]
+    head_rules = (_DEEPLAB_V3PLUS_RULES if "project" in head
+                  else _DEEPLAB_V3_RULES)
+    state = _convert_part(params["backbone"], stats.get("backbone", {}),
+                          backbone_rules)
+    state.update(_convert_part(head, stats.get("head", {}), head_rules))
+    return state

@@ -189,6 +189,7 @@ def no_tf32():
     (1, 17, 19, 16, 40, 16, 4, False),     # dilation 4, Cmid not 32k
     (1, 5, 3, 96, 64, 128, 4, True),       # map smaller than the halo
     (1, 20, 30, 256, 64, 256, 1, False),   # layer1 channels
+    (1, 21, 35, 64, 64, 256, 1, True),     # 7x7-stem layer1.0: Cin 64
     (2, 38, 67, 2048, 512, 2048, 4, False),  # layer4, 304x536, batch 2
     (1, 23, 37, 2048, 512, 2048, 8, False),  # dilation 8
     (1, 19, 29, 1024, 1024, 2048, 2, True),  # Cmid 1024, downsample

@@ -11,7 +11,11 @@ import pytest
 import torch
 
 from open_world_semantic_segmentation_tpu_torch.cli import _common
+from open_world_semantic_segmentation_tpu_torch.cli import eval_embedding
 from open_world_semantic_segmentation_tpu_torch.cli import eval_ood
+from open_world_semantic_segmentation_tpu_torch.cli import extract_prototypes
+from open_world_semantic_segmentation_tpu_torch.cli import main_deeplab
+from open_world_semantic_segmentation_tpu_torch.cli import test_deeplab
 from open_world_semantic_segmentation_tpu_torch.cli import train_embedding
 from open_world_semantic_segmentation_tpu_torch.core.config import (
     load_config)
@@ -34,7 +38,11 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 for name in ("cli.train_embedding", "cli.train", "data.native",
              "train.losses", "train.optim", "train.guard", "train.state",
-             "train.checkpoint", "utils.observability"):
+             "train.checkpoint", "utils.observability", "models.deeplab",
+             "data.transforms", "data.cityscapes", "data.loader",
+             "fewshot", "fewshot.prototypes", "cli.main_deeplab",
+             "cli.extract_prototypes", "cli.eval_embedding",
+             "cli.test_deeplab"):
     assert port.__name__ + "." + name in names, name
 """
 
@@ -45,7 +53,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(maxsplit=1)
-    assert int(n) >= 42 and bad.strip() == "[]", out.stdout
+    assert int(n) >= 52 and bad.strip() == "[]", out.stdout
 
 
 def test_entry_points_refuse_cuda_without_gpu():
@@ -71,3 +79,35 @@ def test_train_entry_point_refuses_cuda_without_gpu():
         train_embedding.main(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _common.build_anomaly_model(cfg, train=True)
+
+
+def test_deeplab_entry_points_refuse_cuda_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: CUDA is a valid choice here")
+    cfg = load_config("configs/cityscapes_embedding.yaml")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main_deeplab.build_deeplab_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        extract_prototypes.main(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_embedding.main(cfg)
+    cfg.DEEPLAB.ckpt = "configs/cityscapes_closed.yaml"  # any file
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        test_deeplab.main(cfg)
+
+
+def test_deeplab_entry_points_raise_for_what_is_not_ported(tmp_path):
+    """The options whose modules wait in ROADMAP.md raise, naming it."""
+    cfg = load_config("configs/cityscapes_embedding.yaml",
+                      ["FEWSHOT.calibrate_scores", "True"])
+    with pytest.raises(NotImplementedError, match="calibration.*ROADMAP"):
+        eval_embedding.main(cfg, device="cpu")
+    cfg = load_config("configs/cityscapes_closed.yaml",
+                      ["DEEPLAB.save_val_results", "True"])
+    with pytest.raises(NotImplementedError, match="visualize.*ROADMAP"):
+        test_deeplab.main(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="training.*ROADMAP"):
+        main_deeplab.main(cfg, device="cpu")
+    cfg.DEEPLAB.model = "deeplabv3plus_mobilenet"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main_deeplab.build_model(cfg)
