@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU (H100): kernels, the
-StreetHazards open-set eval, DML embedding training and the Cityscapes NPM
-few-shot eval, end to end.
+StreetHazards open-set eval, DML embedding training, the Cityscapes NPM
+few-shot eval, DeepLab training and the incremental few-shot fine-tuning
+(FT / PLM self-distillation, teacher-student distillation), end to end.
 
     python3 chip_smoke.py
 
@@ -21,10 +22,11 @@ Phases (any failure exits non-zero and prints no result):
    eval's map with neighbor_size 11, constant maps against the counts,
    timed at 90x160x4096; fused_bottleneck at the seven block
    geometries of resnet50dilated at the largest pyramid level, the six of
-   the DeepLab ResNet-101 (7x7 stem, OS16) at 1024x2048, at ragged small
+   the DeepLab ResNet-101 (7x7 stem, OS16) at 1024x2048 and at the
+   distillation teacher's batch of 5 crops of 768x768, at ragged small
    shapes and at batch 2, dilation 8 and Cmid 1024, in bf16 (tolerance
-   5e-2) and float32 with TF32 off (1e-4), timed in bf16 at both
-   backbones' geometries beside the cuDNN chain of the unfused block, with
+   5e-2) and float32 with TF32 off (1e-4), timed in bf16 at the three
+   sets of geometries beside the cuDNN chain of the unfused block, with
    its three launches (conv1, conv2, conv3 + skip) also timed apart;
 4. slice phase: a synthetic StreetHazards tree of 720x1280 images, a
    full-width resnet50dilated + ppm_deepsup_embedding with seeded random
@@ -69,8 +71,39 @@ Phases (any failure exits non-zero and prints no result):
    waits and the host confusion matrix, imgs/s and peak memory; the
    1024x2048 forward, unfused and fused, alternately six rounds each;
    ``cli.test_deeplab.main`` with deeplabv3plus_resnet101 (19 classes,
-   unknowns scored) on 4 images; and a 64x128 crop through the embedding
-   model in fp32 with TF32 off, cuda (unfused and fused) against the CPU.
+   unknowns scored) on 4 images; a 64x128 crop through the embedding
+   model in fp32 with TF32 off, cuda (unfused and fused) against the CPU;
+   and ``dilated_conv_ways``: the ASPP's dilated conv at rates 6, 12, 18,
+   the shift form (``ops/dilated.py``, the port's default) against cuDNN's
+   conv in bf16 channels_last, forward at 1x2048x64x128 and forward plus
+   backward at 8x2048x48x48 (within 5e-2 of the largest magnitude), then
+   the 1024x2048 forward with each, alternately;
+8. deeplab train phase: a synthetic Cityscapes tree of 1024x2048 images
+   (16 train, 5 in ``test_car_5_shot``, 2 val); ``cli.main_deeplab.main``
+   trains deeplabv3plus_embedding_resnet101 (configs/cityscapes_embedding
+   .yaml: crop 768, batch 8) from the deeplab phase's data-started
+   checkpoint (``DEEPLAB.ckpt``) at DEEPLAB_SMOKE_LR (1e-4, where the
+   config has 0.1) for 10 steps, validating and writing ``latest.pth`` and
+   ``best.pth`` at the last; how far bf16 carries the start and the trained
+   weights from fp32, beside the fp32 forward of the input rounded once
+   (printed only); ``cli.self_distillation.main`` trains the 16+1 two-head
+   model from ``best.pth`` (partial load; configs/self_distillation.yaml:
+   crop 768, batch 5, lr 0.01) for 8 steps, then evaluates ``plm_all`` on 4
+   of the NPM tree's val images unfused and fused (31 launches per image);
+   the backbone, ``classifier`` and every BN statistic must stay
+   bit-identical to the checkpoint and ``classifier_1`` must move; the
+   fused two-head model against the unfused one on the first val image:
+   in fp32 (TF32 off) each head's logits within 1e-3 of the largest, each
+   argmax and the merged prediction agreeing on 99 %, and in bf16 each of
+   the 31 routed blocks on its unfused twin's input within 5e-2 of the
+   largest magnitude; ``cli.main_distillation.main`` for 8 steps with the
+   teacher unfused and then fused (31 launches per step): the student's
+   backbone equals the teacher's before step 1, the fused teacher on the
+   first batch holds against the unfused teacher as above, the two runs'
+   first losses agree within 5e-2; every loss finite, no step skipped,
+   s/step (median after 2 warm-up steps), imgs/s, loader wait s/step, peak
+   memory and launches printed; and the two-head model on a 64x128 crop in
+   fp32 with TF32 off, cuda (unfused and fused) against the CPU.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.
@@ -180,6 +213,65 @@ N_SUPPORT_IMAGES = 8
 N_VAL_IMAGES = 16
 N_CLOSED_SET_IMAGES = 4
 DEEPLAB_ROUTED_BLOCKS = 31
+# the teacher of cli/main_distillation (deeplabv3plus_embedding_resnet101,
+# OS16) on configs/self_distillation.yaml's batch of 5 crops of 768x768,
+# same fields as DEEPLAB_BLOCK_GEOMETRIES: its blocks' geometries at
+# batch TEACHER_BATCH
+TEACHER_BATCH = 5
+TEACHER_BLOCK_GEOMETRIES = (
+    ("layer1.0", 192, 192, 64, 64, 256, 1, True, 1),
+    ("layer1.1-2", 192, 192, 256, 64, 256, 1, False, 2),
+    ("layer2.1-3", 96, 96, 512, 128, 512, 1, False, 3),
+    ("layer3.1-22", 48, 48, 1024, 256, 1024, 1, False, 22),
+    ("layer4.0", 48, 48, 1024, 512, 2048, 1, True, 1),
+    ("layer4.1-2", 48, 48, 2048, 512, 2048, 2, False, 2),
+)
+# DeepLab training at full width and depth on a synthetic tree of 1024x2048
+# images: 16 train images (every batch a fresh random crop of 768x768,
+# epochs reshuffled), the 5-shot split and 2 val images for the trainer's
+# validation. cli/main_deeplab: configs/cityscapes_embedding.yaml (batch 8)
+# at DEEPLAB_SMOKE_LR from the deeplab phase's data-started checkpoint, for
+# 2 warm-up and 8 timed steps, validating and saving at the last; then
+# configs/self_distillation.yaml (batch 5, lr 0.01) for cli/self_distillation
+# and cli/main_distillation, 8 steps each; the PLM eval on 4 of the NPM
+# tree's val images
+DEEPLAB_TRAIN_COUNTS = {"train": 16, "test_car_5_shot": 5, "val": 2}
+# cli/main_deeplab's learning rate here, cut from the config's 0.1 (the
+# rate does not change a step's work): from random weights at 0.1 the
+# first steps move the backbone so far that its BN running statistics
+# (momentum 0.01) no longer fit, and the eval-mode forward, which the
+# validation, the PLM eval and the distillation teacher run on these
+# weights, grows without bound (on the CPU at batch 8 of 192x192 crops:
+# the embedding's largest magnitude 4.0 before, 1.6e5 after one step,
+# 1.0e6 after two; at 1e-3, 375 after six; at 1e-4, 3.3-4.1 for six)
+DEEPLAB_SMOKE_LR = 1e-4
+DEEPLAB_TRAIN_STEPS = 10
+FEWSHOT_TRAIN_STEPS = 8
+PLM_EVAL_IMAGES = 4
+# the fused route on the PLM eval (the two-head model, first val image at
+# 1024x2048) and on the distillation teacher (first batch, 5 crops of
+# 768x768), against the unfused route on the same input: in fp32 (TF32 off)
+# the logits within DEVICE_CHECK_RTOL of the largest and the argmax (and the
+# merged PLM prediction) agreeing on 99 %; in bf16 each routed block on the
+# input its unfused twin gets in the unfused forward, within
+# BLOCK_TOL["bfloat16"] of the largest magnitude. The two bf16 forwards are
+# not held to each other: on these random weights any perturbation of one
+# bf16 rounding grows through the 33 blocks to the size of the logits (the
+# fp32 forward of the input rounded once moves the argmax as far as bf16
+# does; both are printed, see bf16_drift and PERF.md). The first
+# distillation loss with the fused teacher lies within 5e-2 of the unfused
+# teacher's (its pseudo-labels come from the teacher's argmax at the ignored
+# pixels only).
+FUSED_LOSS_RTOL = 5e-2
+# the ASPP's dilated 3x3 conv (2048 -> 256), shift form against cuDNN, bf16
+# channels_last: the eval's layer4 map (1024x2048 / 16) forward, the
+# training's (768 / 16, batch 8) forward and backward; within 5e-2 of the
+# largest magnitude (each tap's product rounded to bf16 before the float32
+# sum, where cuDNN rounds its one float32 sum once)
+DILATED_RATES = (6, 12, 18)
+DILATED_EVAL_SHAPE = (1, 2048, 64, 128)
+DILATED_TRAIN_SHAPE = (8, 2048, 48, 48)
+DILATED_TOL = 5e-2
 # the raw label ids of the 19 Cityscapes train classes; car, truck, bus
 CITYSCAPES_TRAIN_RAW_IDS = (7, 8, 11, 12, 13, 17, 19, 20, 21, 22, 23, 24,
                             25, 26, 27, 28, 31, 32, 33)
@@ -213,6 +305,23 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _tf32_off():
+    """Turns TF32 off; returns the flags to restore with ``_tf32_set``."""
+    import torch
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    _tf32_set((False, False))
+    return saved
+
+
+def _tf32_set(flags):
+    import torch
+
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags
 
 
 def knn_cosine_bound_ms(h, w, c, itemsize=4):
@@ -455,13 +564,12 @@ def fused_kernel_phase():
     from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
         fused_bottleneck, fused_bottleneck_plain)
 
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    tf32 = _tf32_off()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    shapes = [(1, *g[1:8]) for g in BLOCK_GEOMETRIES
-              + DEEPLAB_BLOCK_GEOMETRIES] + list(BLOCK_RAGGED)
+    shapes = ([(1, *g[1:8]) for g in BLOCK_GEOMETRIES
+               + DEEPLAB_BLOCK_GEOMETRIES]
+              + [(TEACHER_BATCH, *g[1:8]) for g in TEACHER_BLOCK_GEOMETRIES]
+              + list(BLOCK_RAGGED))
     max_err = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
@@ -482,12 +590,13 @@ def fused_kernel_phase():
                                      f"{(n, h, w, cin, cmid, cout, d)}")
             max_err[name] = max(max_err.get(name, 0.0),
                                 err.max().item())
-    (torch.backends.cuda.matmul.allow_tf32,
-     torch.backends.cudnn.allow_tf32) = tf32
+    _tf32_set(tf32)
 
     per_geometry, totals = time_block_geometries(BLOCK_GEOMETRIES, gen)
     deeplab_rows, deeplab_totals = time_block_geometries(
         DEEPLAB_BLOCK_GEOMETRIES, gen)
+    teacher_rows, teacher_totals = time_block_geometries(
+        TEACHER_BLOCK_GEOMETRIES, gen, n=TEACHER_BATCH)
     return {
         "name": "fused_bottleneck",
         "route": "cuda",
@@ -513,13 +622,19 @@ def fused_kernel_phase():
         # forward at 1024x2048 (the NPM eval), bf16; launches on that path
         # are filled in from its fused run
         "deeplab": {**deeplab_totals, "launches": None,
+                    "plm_eval_launches": None,
                     "per_geometry": deeplab_rows},
+        # the 31 fused blocks of the distillation teacher's forward, batch
+        # 5 of 768x768 crops; launches from the fused-teacher run
+        "distillation_teacher": {**teacher_totals, "launches": None,
+                                 "batch": TEACHER_BATCH,
+                                 "per_geometry": teacher_rows},
     }
 
 
-def time_block_geometries(geometries, gen):
-    """Time fused_bottleneck in bf16 at ``geometries``, one image each: the
-    wrapper, the three launches alone (``kernel_ms``) and each launch
+def time_block_geometries(geometries, gen, n=1):
+    """Time fused_bottleneck in bf16 at ``geometries``, batches of ``n``:
+    the wrapper, the three launches alone (``kernel_ms``) and each launch
     apart, the plain version, the cuDNN chain and the bound. Returns the
     rows and their sums over the blocks of one forward."""
     import torch
@@ -534,11 +649,11 @@ def time_block_geometries(geometries, gen):
                             "conv3_ms", "plain_ms", "library_ms", "ops_ms",
                             "bytes_ms", "bound_ms"), 0.0)
     for name, h, w, cin, cmid, cout, d, down, count in geometries:
-        x, ws = _block_inputs(gen, 1, h, w, cin, cmid, cout, down,
+        x, ws = _block_inputs(gen, n, h, w, cin, cmid, cout, down,
                               torch.bfloat16)
         launch, _ = fused_block.fused_bottleneck_launcher(x, *ws,
                                                           dilation=d)
-        row = {"block": name, "shape": [h, w, cin, cmid, cout, d],
+        row = {"block": name, "shape": [n, h, w, cin, cmid, cout, d],
                "downsample": down, "per_forward": count,
                "ms": cuda_time_ms(
                    lambda: fused_bottleneck(x, *ws, dilation=d)),
@@ -552,8 +667,9 @@ def time_block_geometries(geometries, gen):
                    lambda: fused_bottleneck_plain(x, *ws, dilation=d),
                    iters=5),
                "library_ms": cuda_time_ms(_cudnn_chain(x, ws, d)),
-               "plan": fused_block.launch_plan(1, h, w, cmid, cout, sms)}
-        t_ops, t_bytes = fused_bottleneck_bound_ms(h, w, cin, cmid, cout,
+               "plan": fused_block.launch_plan(n, h, w, cmid, cout, sms)}
+        # the work of n images: n times the pixels, the weights read once
+        t_ops, t_bytes = fused_bottleneck_bound_ms(n * h, w, cin, cmid, cout,
                                                    down)
         row.update(ops_ms=t_ops, bytes_ms=t_bytes,
                    bound_ms=max(t_ops, t_bytes),
@@ -1187,9 +1303,9 @@ def write_cityscapes_tree(root, counts, size, seed):
     """Cityscapes-format tree (``leftImg8bit/<split>/synth/*_leftImg8bit.png``
     and ``gtFine/<split>/synth/*_gtFine_labelIds.png``) with ``counts[split]``
     images per split: raw-id labels, blocks of the 19 train classes over
-    road, then the featured blocks on top: in ``train`` car over h/3 x w/3
-    in all but every fourth image, in ``val`` a car, a truck and a bus block
-    in every image. Images: one colour per raw id plus noise."""
+    road, then the featured blocks on top: in every split but ``val`` car
+    over h/3 x w/3 in all but every fourth image, in ``val`` a car, a truck
+    and a bus block in every image. Images: one colour per raw id plus noise."""
     from concurrent.futures import ThreadPoolExecutor
 
     from PIL import Image
@@ -1209,7 +1325,7 @@ def write_cityscapes_tree(root, counts, size, seed):
                     lab[r0:r0 + rng.integers(h // 15, h // 3),
                         c0:c0 + rng.integers(w // 15, w // 3)] = \
                         rng.choice(ids)
-                if split == "train":
+                if split != "val":
                     featured = [(CAR, h // 3, w // 3)] if i % 4 != 3 else []
                 else:
                     featured = [(CAR, h // 4, w // 4), (TRUCK, h // 5, w // 6),
@@ -1359,6 +1475,7 @@ def deeplab_phase(root):
         f"{launches['npm_fused']['fused_bottleneck']} "
         f"({DEEPLAB_ROUTED_BLOCKS} per image, {N_VAL_IMAGES} images)")
     summaries["forward_comparison"] = deeplab_forward_comparison(cfg)
+    summaries["dilated_conv_ways"] = dilated_conv_ways(cfg)
 
     # the closed-set eval of deeplabv3plus_resnet101, unknowns scored
     ccfg = load_config("configs/cityscapes_closed.yaml", [
@@ -1381,21 +1498,24 @@ def deeplab_phase(root):
     return summaries, launches["npm_fused"]["fused_bottleneck"]
 
 
-def deeplab_forward_comparison(cfg, rounds=6):
+def deeplab_forward_comparison(cfg, ways=None, rounds=6, iters=5):
     """The 1024x2048 forward of one image (bf16, CUDA events, no data
-    movement, NPM or metrics), unfused and with ``fused_blocks=True``,
-    timed alternately ``rounds`` times each; every round and the medians."""
+    movement, NPM or metrics) two ways, each a dict of keywords of
+    ``build_deeplab_model`` (by default unfused and ``fused_blocks=True``),
+    timed alternately ``rounds`` times each; every round and the medians,
+    and the first way's median less the second's."""
     import torch
 
     from open_world_semantic_segmentation_tpu_torch.cli.main_deeplab import (
         build_deeplab_model, get_transforms, get_val_dataset,
         init_or_load_deeplab)
 
+    ways = ways or {"unfused": {}, "fused": {"fused_blocks": True}}
     models = {}
-    for fused in (False, True):
-        model, _ = build_deeplab_model(cfg, DEVICE, fused_blocks=fused)
-        models[fused] = init_or_load_deeplab(model,
-                                             cfg.MODEL.weights_encoder)
+    for name, kw in ways.items():
+        model, _ = build_deeplab_model(cfg, DEVICE, **kw)
+        models[name] = init_or_load_deeplab(model,
+                                            cfg.MODEL.weights_encoder)
     ds = get_val_dataset(cfg, get_transforms(cfg.DEEPLAB.crop_size)[1])
     x = torch.from_numpy(ds[0][0][None]).to(DEVICE)
 
@@ -1406,17 +1526,17 @@ def deeplab_forward_comparison(cfg, rounds=6):
                 model(x)
         return run
 
-    times = {False: [], True: []}
-    for fused in [False, True, True, False] * (rounds // 2):
-        times[fused].append(cuda_time_ms(forward(models[fused]), iters=5))
-    result = {("fused" if fused else "unfused"): {
-        "forward_ms": t, "forward_ms_median": float(np.median(t))}
-        for fused, t in times.items()}
+    first, second = ways
+    times = {name: [] for name in ways}
+    for name in [first, second, second, first] * (rounds // 2):
+        times[name].append(cuda_time_ms(forward(models[name]), iters=iters))
+    result = {name: {"forward_ms": t, "forward_ms_median": float(
+        np.median(t))} for name, t in times.items()}
     result["forward_ms_gain_median"] = (
-        result["unfused"]["forward_ms_median"]
-        - result["fused"]["forward_ms_median"])
-    log(f"deeplab forward comparison, {list(CITYSCAPES_SIZE)}, batch 1: "
-        + json.dumps(result))
+        result[first]["forward_ms_median"]
+        - result[second]["forward_ms_median"])
+    log(f"deeplab forward comparison {first} vs {second}, "
+        f"{list(CITYSCAPES_SIZE)}, batch 1: " + json.dumps(result))
     return result
 
 
@@ -1433,10 +1553,7 @@ def deeplab_device_check(cfg):
         build_deeplab_model, get_transforms, get_val_dataset,
         init_or_load_deeplab)
 
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    tf32 = _tf32_off()
     ds = get_val_dataset(cfg, get_transforms(cfg.DEEPLAB.crop_size)[1])
     x = np.ascontiguousarray(ds[0][0][None, :64, :128])
     labels = np.ascontiguousarray(ds[0][1][:64, :128]).astype(np.int32)
@@ -1466,8 +1583,7 @@ def deeplab_device_check(cfg):
         if same < 0.99:
             raise AssertionError(f"deeplab {name} argmax agreement {same}")
     deeplab_npm_check(cfg, cpu, labels)
-    (torch.backends.cuda.matmul.allow_tf32,
-     torch.backends.cudnn.allow_tf32) = tf32
+    _tf32_set(tf32)
 
 
 def deeplab_npm_check(cfg, outputs, labels):
@@ -1538,6 +1654,531 @@ def deeplab_npm_check(cfg, outputs, labels):
                                      f"{fired} pixels")
 
 
+def _trainer_summary(result, batch, warmup):
+    """Timing of a trainer's run logged every step (``log_every=1``, one
+    sync per step): s/step (median after ``warmup`` steps), imgs/s, loader
+    wait per step, each step's time and loss."""
+    steps = result["log"]
+    times = [e["seconds"] - (steps[i - 1]["seconds"] if i else 0.0)
+             for i, e in enumerate(steps)]
+    waits = [e["wait"] - (steps[i - 1]["wait"] if i else 0.0)
+             for i, e in enumerate(steps)]
+    s_per_step = float(np.median(times[warmup:]))
+    return {"steps": len(steps), "batch": batch,
+            "s_per_step_median": s_per_step,
+            "imgs_per_s": batch / s_per_step,
+            "loader_wait_s_per_step": float(np.mean(waits[warmup:])),
+            "per_step_s": times, "losses": [e["loss"] for e in steps]}
+
+
+def deeplab_train_phase(root):
+    """DeepLab training and the incremental few-shot fine-tuning at full
+    width and depth, bf16 autocast over float32 parameters; see the module
+    note. Returns the summaries and the fused_bottleneck launches of the
+    fused PLM eval and of the fused-teacher distillation run."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli import (
+        main_deeplab, main_distillation, self_distillation)
+    from open_world_semantic_segmentation_tpu_torch.core.config import (
+        load_config)
+    from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
+        fused_bottleneck)
+    from open_world_semantic_segmentation_tpu_torch.ops.knn import knn_cosine
+
+    kernels = {"knn_cosine": knn_cosine, "fused_bottleneck": fused_bottleneck}
+    tree = os.path.join(root, "cityscapes_train")
+    tic = time.perf_counter()
+    write_cityscapes_tree(tree, DEEPLAB_TRAIN_COUNTS, CITYSCAPES_SIZE,
+                          SEED + 3)
+    log(f"cityscapes training tree: {DEEPLAB_TRAIN_COUNTS} images of "
+        f"{CITYSCAPES_SIZE} in {time.perf_counter() - tic:.1f} s")
+    summaries = {}
+
+    def run(name, fn, want_fused=0):
+        """``fn()`` with the launch counts zeroed just before and read just
+        after, and the peak memory; returns its result and its summary."""
+        for kernel in kernels.values():
+            kernel.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        tic = time.perf_counter()
+        result = fn()
+        launches = {k: kernel.launches for k, kernel in kernels.items()}
+        summary = {"seconds": time.perf_counter() - tic,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                   "launches": launches}
+        if launches != {"knn_cosine": 0, "fused_bottleneck": want_fused}:
+            raise AssertionError(f"{name}: launches {launches}, want "
+                                 f"fused_bottleneck {want_fused}")
+        summaries[name] = summary
+        return result, summary
+
+    def trained(name, result, summary, batch, steps):
+        summary.update(_trainer_summary(result, batch, TRAIN_WARMUP))
+        log(f"{name}: " + json.dumps(summary))
+        if result["steps"] != steps or summary["steps"] != steps:
+            raise AssertionError(f"{name}: {result['steps']} steps")
+        if not all(np.isfinite(summary["losses"])):
+            raise AssertionError(f"{name}: a loss is not finite")
+
+    # 1. cli/main_deeplab: the base 16-class embedding model
+    base_dir = os.path.join(root, "deeplab_train")
+    # from the deeplab phase's seeded checkpoint (BN statistics from the
+    # data) at DEEPLAB_SMOKE_LR: see its note
+    cfg = load_config("configs/cityscapes_embedding.yaml", [
+        "DATASET.root_dataset", tree,
+        "DEEPLAB.ckpt", os.path.join(root, "deeplab_embedding.pth"),
+        "DEEPLAB.lr", str(DEEPLAB_SMOKE_LR),
+        "DEEPLAB.val_interval", str(DEEPLAB_TRAIN_STEPS), "DIR", base_dir])
+    result, summary = run("main_deeplab", lambda: main_deeplab.main(
+        cfg, torch.bfloat16, max_steps=DEEPLAB_TRAIN_STEPS, device=DEVICE,
+        log_every=1))
+    summary.update(skipped=result["skipped"],
+                   validations=result["validations"])
+    trained("main_deeplab", result, summary, cfg.DEEPLAB.batch_size,
+            DEEPLAB_TRAIN_STEPS)
+    base = os.path.join(base_dir, "best.pth")
+    # how far bf16 carries the start and the trained weights from fp32 on
+    # the first val image of the NPM tree (reported, not checked)
+    ncfg = load_config("configs/cityscapes_embedding.yaml", [
+        "DATASET.root_dataset", os.path.join(root, "cityscapes")])
+    val = main_deeplab.get_val_dataset(
+        ncfg, main_deeplab.get_transforms(ncfg.DEEPLAB.crop_size)[1])
+    x = torch.from_numpy(val[0][0][None]).to(DEVICE)
+    summaries["bf16_drift"] = {
+        name: bf16_drift(name, ncfg, path, x) for name, path in (
+            ("data-started checkpoint", cfg.DEEPLAB.ckpt),
+            ("main_deeplab best.pth", base))}
+    if result["skipped"] or len(result["validations"]) != 1 or not all(
+            os.path.exists(os.path.join(base_dir, f))
+            for f in ("latest.pth", "best.pth")):
+        raise AssertionError(f"main_deeplab: {result['skipped']} skipped, "
+                             f"validations {result['validations']}, "
+                             f"{os.listdir(base_dir)}")
+
+    # 2. cli/self_distillation --mode train from that checkpoint
+    sd_dir = os.path.join(root, "self_distillation")
+    scfg = load_config("configs/self_distillation.yaml", [
+        "DATASET.root_dataset", tree, "MODEL.weights_encoder", base,
+        "DIR", sd_dir])
+    result, summary = run("self_distillation_train",
+                          lambda: self_distillation.main(
+                              scfg, torch.bfloat16, mode="train",
+                              max_steps=FEWSHOT_TRAIN_STEPS, device=DEVICE,
+                              log_every=1))
+    trained("self_distillation_train", result, summary,
+            scfg.DEEPLAB.batch_size, FEWSHOT_TRAIN_STEPS)
+    summary["frozen"] = self_distillation_frozen_check(scfg, base,
+                                                       result["path"])
+
+    # 3. --mode eval (plm_all) on the NPM tree's val images, both routes
+    ecfg = load_config("configs/self_distillation.yaml", [
+        "DATASET.root_dataset", os.path.join(root, "cityscapes"),
+        "MODEL.weights_encoder", result["path"]])
+    plm_launches = DEEPLAB_ROUTED_BLOCKS * PLM_EVAL_IMAGES
+    for fused in (False, True):
+        name = "plm_eval_fused" if fused else "plm_eval"
+        score, summary = run(name, lambda: self_distillation.main(
+            ecfg, torch.bfloat16, mode="eval", max_images=PLM_EVAL_IMAGES,
+            device=DEVICE, fused_blocks=fused),
+            want_fused=plm_launches if fused else 0)
+        summary.update({k: float(score[k]) for k in (
+            "Overall Acc", "Mean Acc", "FreqW Acc", "Mean IoU")},
+            images=score["images"],
+            imgs_per_s=score["images"] / score["seconds"])
+        log(f"{name}: " + json.dumps(summary))
+        if score["images"] != PLM_EVAL_IMAGES or not all(
+                np.isfinite(v) for v in summary.values()
+                if isinstance(v, float)):
+            raise AssertionError(f"{name}: {summary}")
+    summaries["plm_fused_route"] = plm_fused_check(ecfg)
+
+    # 4. cli/main_distillation, the teacher unfused and then fused
+    dcfg = load_config("configs/self_distillation.yaml", [
+        "DATASET.root_dataset", tree, "MODEL.weights_encoder", base,
+        "DIR", os.path.join(root, "distillation")])
+    summaries["teacher_fused_route"] = distillation_check(dcfg)
+    first = {}
+    for fused in (False, True):
+        name = "main_distillation_fused" if fused else "main_distillation"
+        result, summary = run(name, lambda: main_distillation.main(
+            dcfg, torch.bfloat16, max_steps=FEWSHOT_TRAIN_STEPS,
+            device=DEVICE, fused_blocks=fused, log_every=1),
+            want_fused=(DEEPLAB_ROUTED_BLOCKS * FEWSHOT_TRAIN_STEPS
+                        if fused else 0))
+        trained(name, result, summary, dcfg.DEEPLAB.batch_size,
+                FEWSHOT_TRAIN_STEPS)
+        first[fused] = summary["losses"][0]
+    diff = abs(first[True] - first[False])
+    log(f"distillation first loss: unfused teacher {first[False]}, fused "
+        f"{first[True]}, |diff| {diff:.4g} (bound "
+        f"{FUSED_LOSS_RTOL * abs(first[False]):.4g})")
+    if not diff <= FUSED_LOSS_RTOL * abs(first[False]):
+        raise AssertionError(f"distillation first losses {first}")
+
+    # 5. the two-head model in fp32 on cuda against the CPU
+    summaries["device_check"] = self_distillation_device_check(ecfg)
+    return summaries, (summaries["plm_eval_fused"]["launches"]
+                       ["fused_bottleneck"],
+                       summaries["main_distillation_fused"]["launches"]
+                       ["fused_bottleneck"])
+
+
+def self_distillation_frozen_check(cfg, base_path, trained_path):
+    """After the self-distillation steps: every entry of the base
+    checkpoint (backbone, ``classifier``, their BN statistics) bit-identical
+    in the trained model, ``classifier_1``'s BN statistics still at their
+    init and its parameters moved from it."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli import (
+        self_distillation)
+
+    base = torch.load(base_path, map_location="cpu")["model_state"]
+    got = torch.load(trained_path, map_location="cpu")["model_state"]
+    init_cfg = cfg.clone()
+    init_cfg.MODEL.weights_encoder = ""
+    model, _ = self_distillation.build_self_distillation_model(init_cfg,
+                                                               "cpu")
+    init = model.state_dict()
+    params = {k for k, _ in model.named_parameters()}
+    same = sum(torch.equal(got[k], v) for k, v in base.items())
+    novel = [k for k in got if k.startswith("classifier_1.")]
+    moved = [k for k in novel if k in params
+             and not torch.equal(got[k], init[k])]
+    stats_kept = all(torch.equal(got[k], init[k]) for k in novel
+                     if k not in params)
+    result = {"base_entries": len(base), "bit_identical": same,
+              "classifier_1_params": len([k for k in novel if k in params]),
+              "classifier_1_moved": len(moved),
+              "classifier_1_bn_statistics_kept": stats_kept}
+    log("self-distillation frozen check: " + json.dumps(result))
+    if same != len(base) or not moved or not stats_kept:
+        raise AssertionError(f"self-distillation frozen check: {result}")
+    return result
+
+
+def distance(got, want, argmax=True):
+    """Largest |difference| over the largest |want|, root-mean-square
+    difference over the root-mean-square of ``want``, and, with
+    ``argmax``, the argmax agreement over the last axis."""
+    got, want = got.double(), want.double()
+    diff = got - want
+    row = {"max_rel": float(diff.abs().max() / want.abs().max()),
+           "rms_rel": float(diff.square().mean().sqrt()
+                            / want.square().mean().sqrt())}
+    if argmax:
+        row["argmax"] = float((got.argmax(-1) == want.argmax(-1))
+                              .double().mean())
+    return row
+
+
+def _route_ways(name, build, run, x):
+    """The fused route of ``build(fused)`` against the unfused one on the
+    input ``x``, where ``run(model, x)`` gives a list of logits (NHWK):
+
+    - fp32, TF32 off: the fused logits within DEVICE_CHECK_RTOL of the
+      unfused ones' largest magnitude, the argmax agreeing on 99 % of the
+      pixels (fails the run);
+    - bf16 autocast: each routed bottleneck of the fused model on the input
+      its unfused twin receives in the unfused bf16 forward, against that
+      block's output, within BLOCK_TOL["bfloat16"] of its largest
+      magnitude (fails the run);
+    - reported only: the whole bf16 forwards, unfused against fp32 and
+      fused against unfused (``bf16_drift`` says why they part).
+
+    Returns (fp32 unfused logits, fp32 fused logits, the summary)."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.models.resnet import (
+        Bottleneck)
+
+    models = {fused: build(fused) for fused in (False, True)}
+    saved = _tf32_off()
+    with torch.no_grad():
+        fp32 = {fused: [t.float() for t in run(m, x)]
+                for fused, m in models.items()}
+    _tf32_set(saved)
+    summary = {"fp32_fused_vs_unfused": [], "bf16_unfused_vs_fp32": [],
+               "bf16_fused_vs_unfused": []}
+    for i, (u, f) in enumerate(zip(fp32[False], fp32[True])):
+        row = distance(f, u)
+        row["bound"] = DEVICE_CHECK_RTOL
+        summary["fp32_fused_vs_unfused"].append(row)
+        if not (row["max_rel"] <= DEVICE_CHECK_RTOL
+                and row["argmax"] >= 0.99):
+            raise AssertionError(f"{name} fp32 fused route, output {i}: "
+                                 f"{row}")
+
+    # bf16: the unfused forward with every routed block's input and output
+    blocks = {b: m for b, m in models[True].named_modules()
+              if isinstance(m, Bottleneck) and m.fused_tile is not None}
+    seen = []
+    unfused_modules = dict(models[False].named_modules())
+    hooks = [unfused_modules[b].register_forward_hook(
+        lambda _, args, out, b=b: seen.append((b, args[0], out)))
+        for b in blocks]
+    bf16 = {}
+    with torch.no_grad(), torch.autocast(DEVICE, dtype=torch.bfloat16):
+        bf16[False] = run(models[False], x)
+        for hook in hooks:
+            hook.remove()
+        bf16[True] = run(models[True], x)
+        worst = 0.0
+        for b, inp, want in seen:
+            got = blocks[b](inp).float()
+            rel = float((got - want.float()).abs().max()
+                        / want.float().abs().max())
+            worst = max(worst, rel)
+            if not rel <= BLOCK_TOL["bfloat16"]:
+                raise AssertionError(f"{name} bf16 block {b}: {rel}")
+    if len(seen) != DEEPLAB_ROUTED_BLOCKS:
+        raise AssertionError(f"{name}: {len(seen)} routed blocks seen")
+    summary["bf16_blocks"] = {"blocks": len(seen), "worst_max_rel": worst,
+                              "bound": BLOCK_TOL["bfloat16"]}
+    for i, ref in enumerate(fp32[False]):
+        summary["bf16_unfused_vs_fp32"].append(distance(bf16[False][i], ref))
+        summary["bf16_fused_vs_unfused"].append(
+            distance(bf16[True][i], bf16[False][i]))
+    log(f"{name}: " + json.dumps(summary))
+    del models, seen
+    return fp32[False], fp32[True], summary
+
+
+def plm_fused_check(cfg):
+    """The two-head model's forward of the first val image (1024x2048),
+    with ``fused_blocks=True`` against unfused (``_route_ways``): each
+    head's logits, and in fp32 the merged ``plm_all`` prediction agreeing
+    on 99 % of the pixels."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli import (
+        self_distillation)
+    from open_world_semantic_segmentation_tpu_torch.cli.main_deeplab import (
+        get_transforms, get_val_dataset)
+    from open_world_semantic_segmentation_tpu_torch.fewshot.\
+        self_distillation import merge_head_predictions
+
+    ds = get_val_dataset(cfg, get_transforms(cfg.DEEPLAB.crop_size)[1])
+    x = torch.from_numpy(ds[0][0][None]).to(DEVICE)
+    unfused, fused, result = _route_ways(
+        "plm fused route, first val image",
+        lambda f: self_distillation.build_self_distillation_model(
+            cfg, DEVICE, fused_blocks=f)[0],
+        lambda model, x: model(x)[0], x)
+    merged = [merge_head_predictions(t, variant=cfg.FEWSHOT.variant,
+                                     base_classes=unfused[0].shape[-1])
+              for t in (unfused, fused)]
+    agree = float((merged[0] == merged[1]).float().mean())
+    log(f"plm fp32 merged prediction, fused vs unfused: agreement {agree}")
+    if agree < 0.99:
+        raise AssertionError(f"plm merged prediction agreement {agree}")
+    result["fp32_merged_agreement"] = agree
+    return result
+
+
+def distillation_check(cfg):
+    """The student's backbone equals the teacher's before step 1; the
+    teacher's logits on the first training batch (5 crops of 768x768),
+    fused against unfused (``_route_ways``)."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli import (
+        main_distillation)
+    from open_world_semantic_segmentation_tpu_torch.cli.main_deeplab import (
+        train_batches)
+    from open_world_semantic_segmentation_tpu_torch.cli.self_distillation \
+        import training_split
+
+    batches = train_batches(training_split(cfg), cfg.DEEPLAB.batch_size,
+                            cfg.DEEPLAB.random_seed, DEVICE)
+    batch = next(batches)
+    batches.close()
+
+    def build(fused):
+        teacher, student = main_distillation.build_models(
+            cfg, torch.device(DEVICE), fused_blocks=fused)
+        if not fused:
+            t_state = teacher.backbone.state_dict()
+            differ = [k for k, v in student.backbone.state_dict().items()
+                      if not torch.equal(v, t_state[k])]
+            log(f"distillation: student backbone equals the teacher's in "
+                f"{len(t_state) - len(differ)} of {len(t_state)} entries")
+            if differ:
+                raise AssertionError(f"student backbone differs: {differ}")
+        return teacher
+
+    return _route_ways("distillation teacher fused route, first batch",
+                       build, lambda model, x: [model(x)[0]],
+                       batch["image"])[2]
+
+
+def bf16_drift(name, cfg, weights, x):
+    """Reported only: how far the single-head embedding model with
+    ``weights`` moves on ``x`` when its forward runs in bf16, and when one
+    bf16 rounding (2^-9 n relative, n standard normal) perturbs its fp32
+    input; logits and features against the fp32 forward (TF32 off)."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli.main_deeplab import (
+        build_deeplab_model, init_or_load_deeplab)
+
+    model, _ = build_deeplab_model(cfg, DEVICE)
+    init_or_load_deeplab(model, weights)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    noise = torch.randn(x.shape, generator=gen, device=DEVICE)
+    saved = _tf32_off()
+    with torch.no_grad():
+        ref = model(x)
+        perturbed = model(x * (1 + 2.0 ** -9 * noise))
+        with torch.autocast(DEVICE, dtype=torch.bfloat16):
+            low = model(x)
+    _tf32_set(saved)
+    result = {"bf16_vs_fp32": {"logits": distance(low[0], ref[0]),
+                               "features": distance(low[2], ref[2])},
+              "fp32_input_rounded_vs_fp32": {
+                  "logits": distance(perturbed[0], ref[0]),
+                  "features": distance(perturbed[2], ref[2])},
+              "max_abs_logit": float(ref[0].abs().max())}
+    log(f"bf16 drift, {name}: " + json.dumps(result))
+    return result
+
+
+def self_distillation_device_check(cfg):
+    """The two-head model over a 64x128 crop of the first val image in
+    fp32, TF32 off, on cuda (unfused and fused) against the CPU: every
+    head's logits and features within DEVICE_CHECK_RTOL of their largest
+    magnitude, each head's argmax agreeing on 99 % of the pixels."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli import (
+        self_distillation)
+    from open_world_semantic_segmentation_tpu_torch.cli.main_deeplab import (
+        get_transforms, get_val_dataset)
+
+    tf32 = _tf32_off()
+    ds = get_val_dataset(cfg, get_transforms(cfg.DEEPLAB.crop_size)[1])
+    x = np.ascontiguousarray(ds[0][0][None, :64, :128])
+
+    def forward(device, fused):
+        model, _ = self_distillation.build_self_distillation_model(
+            cfg, device, fused_blocks=fused)
+        with torch.no_grad():
+            logits, _, features = model(torch.from_numpy(x).to(device))
+        return {"logits": [t.cpu().numpy() for t in logits],
+                "features": [t.cpu().numpy() for t in features]}
+
+    cpu = forward("cpu", False)
+    worst = {}
+    for fused in (False, True):
+        got = forward(DEVICE, fused)
+        name = "fused" if fused else "unfused"
+        for key in ("logits", "features"):
+            for i, (g, w) in enumerate(zip(got[key], cpu[key])):
+                err = float(np.abs(g - w).max())
+                bound = DEVICE_CHECK_RTOL * float(np.abs(w).max())
+                log(f"self-distillation device check fp32 {name} head {i} "
+                    f"{key}: max |diff| {err:.4g} (bound {bound:.4g})")
+                if not err <= bound:
+                    raise AssertionError(f"two-head {name} {key} {i}: {err}")
+                worst[f"{name}_{key}_{i}"] = err / bound
+        for i, (g, w) in enumerate(zip(got["logits"], cpu["logits"])):
+            same = float((g.argmax(-1) == w.argmax(-1)).mean())
+            log(f"self-distillation device check fp32 {name} head {i} "
+                f"argmax agreement {same:.5f}")
+            if same < 0.99:
+                raise AssertionError(f"two-head {name} argmax {same}")
+    _tf32_set(tf32)
+    return worst
+
+
+def dilated_conv_ways(cfg):
+    """The ASPP's dilated 3x3 conv (2048 -> 256) at rates 6, 12 and 18,
+    bf16 channels_last: the shift form (``ops/dilated.py``) against
+    cuDNN's conv, forward at the eval's map and forward plus backward at
+    the training's, checked (DILATED_TOL) and timed with CUDA events; the
+    bound is the larger of the products' operations at the bf16 peak and
+    the input, weights and output read or written once. Then the
+    1024x2048 NPM forward with ``dilated_impl="shift"`` and ``"native"``,
+    alternately."""
+    import torch
+    import torch.nn.functional as F
+
+    from open_world_semantic_segmentation_tpu_torch.ops.dilated import (
+        dilated_conv3x3_shift)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    cl = torch.channels_last
+    rows = []
+
+    def close(name, got, want):
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        if not err <= DILATED_TOL * scale:
+            raise AssertionError(f"dilated {name}: |diff| {err} of {scale}")
+        return err / scale
+
+    for rate in DILATED_RATES:
+        row = {"rate": rate}
+        for phase, shape in (("eval", DILATED_EVAL_SHAPE),
+                             ("train", DILATED_TRAIN_SHAPE)):
+            n, cin, h, w = shape
+            x = torch.randn(shape, generator=gen, device=DEVICE).to(
+                torch.bfloat16).contiguous(memory_format=cl)
+            wt = (torch.randn((256, cin, 3, 3), generator=gen,
+                              device=DEVICE) / (9 * cin) ** 0.5).to(
+                torch.bfloat16)
+            ways = {"shift": lambda a, b: dilated_conv3x3_shift(a, b, rate),
+                    "native": lambda a, b: F.conv2d(a, b, padding=rate,
+                                                    dilation=rate)}
+            flops = 2 * n * h * w * cin * 256 * 9
+            nbytes = 2 * (x.numel() + wt.numel() + n * h * w * 256)
+            if phase == "eval":
+                with torch.no_grad():
+                    out = {k: f(x, wt) for k, f in ways.items()}
+                    row["eval_rel_err"] = close(f"rate {rate} forward",
+                                                out["shift"], out["native"])
+                    for k, f in ways.items():
+                        row[f"eval_{k}_ms"] = cuda_time_ms(
+                            lambda f=f: f(x, wt), iters=5 if k == "native"
+                            else 20)
+            else:
+                # forward plus the gradients of x and the weights: the
+                # products three times, the activations and the gradients
+                # moved
+                flops, nbytes = 3 * flops, 3 * nbytes
+                grad_out = torch.randn((n, 256, h, w), generator=gen,
+                                       device=DEVICE).to(torch.bfloat16)
+                grad_out = grad_out.contiguous(memory_format=cl)
+
+                def step(f):
+                    a = x.detach().requires_grad_()
+                    b = wt.detach().requires_grad_()
+                    f(a, b).backward(grad_out)
+                    return a.grad, b.grad
+
+                grads = {k: step(f) for k, f in ways.items()}
+                row["train_rel_err"] = max(
+                    close(f"rate {rate} grad {i}", g, w)
+                    for i, (g, w) in enumerate(zip(grads["shift"],
+                                                   grads["native"])))
+                for k, f in ways.items():
+                    row[f"train_{k}_ms"] = cuda_time_ms(
+                        lambda f=f: step(f), iters=3 if k == "native"
+                        else 10, warmup=1)
+            t_ops = flops / PEAK_BF16_FLOPS * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            row[f"{phase}_bound_ms"] = max(t_ops, t_bytes)
+            row[f"{phase}_bound_by"] = ("operations" if t_ops >= t_bytes
+                                        else "bytes")
+        log("dilated conv ways: " + json.dumps(row))
+        rows.append(row)
+    forward = deeplab_forward_comparison(
+        cfg, {"native": {"dilated_impl": "native"},
+              "shift": {"dilated_impl": "shift"}}, rounds=2, iters=3)
+    return {"per_rate": rows, "npm_forward": forward}
+
+
 # ---------------------------------------------------------------------------
 def main():
     import torch
@@ -1566,12 +2207,15 @@ def main():
         device_check(cfg)
         train_check = train_step_check()
         deeplab, deeplab_launches = deeplab_phase(root)
+        training, (plm_launches, teacher_launches) = deeplab_train_phase(root)
     # launches on the main path: knn_cosine in the knn run, fused_bottleneck
     # in the fused run (the runs that take each kernel's path)
     kernels[0]["launches"] = launches["knn"]["knn_cosine"]
     set_path_dtype(kernels[0], summaries.pop("knn_input_dtype"))
     kernels[1]["launches"] = launches["dissum_fused"]["fused_bottleneck"]
     kernels[1]["deeplab"]["launches"] = deeplab_launches
+    kernels[1]["deeplab"]["plm_eval_launches"] = plm_launches
+    kernels[1]["distillation_teacher"]["launches"] = teacher_launches
     log(f"gpu: {gpu}; eval summaries: " + json.dumps(summaries))
     log(f"gpu: {gpu}; train: s/step {train['s_per_step_median']}, imgs/s "
         f"{train['imgs_per_s']}, loader wait s/step "
@@ -1580,6 +2224,7 @@ def main():
         f"losses {[e['loss'] for e in train['per_step']]}; train step check "
         + json.dumps(train_check))
     log(f"gpu: {gpu}; deeplab: " + json.dumps(deeplab))
+    log(f"gpu: {gpu}; deeplab training: " + json.dumps(training))
     log(f"total {time.perf_counter() - tic:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

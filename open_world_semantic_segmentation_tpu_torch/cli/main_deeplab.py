@@ -1,32 +1,59 @@
-"""DeepLab on Cityscapes: the eval surface of the JAX package's
-``cli/main_deeplab.py`` (the reference's main.py / main_embedding.py).
+"""DeepLab on Cityscapes: the JAX package's ``cli/main_deeplab.py`` (the
+reference's main.py / main_embedding.py), training and eval.
 
-Usage (eval only; ``DEEPLAB.test_only True`` runs ``cli/test_deeplab.py``):
+Usage:
   python -m open_world_semantic_segmentation_tpu_torch.cli.main_deeplab \
-      DEEPLAB.test_only True DEEPLAB.ckpt best.pth ...
+      --cfg configs/cityscapes_embedding.yaml [DEEPLAB.total_itrs 30000 ...]
+  (eval only: DEEPLAB.test_only True DEEPLAB.ckpt best.pth, which runs
+  ``cli/test_deeplab.py``)
+
+Runs on CUDA unless ``--device cpu`` is given; ``--precision bf16`` (the
+default) runs under bf16 autocast over float32 parameters. The closed-set
+recipe (main.py:243-419): crop 768, ColorJitter(.5, .5, .5), horizontal
+flip, SGD (momentum 0.9, the backbone at 0.1x the heads' rate), poly LR
+over ``total_itrs`` (min 1e-6), ``CE / n`` (or the focal loss), the
+non-finite guard, and every ``val_interval`` steps the ``latest.pth``
+checkpoint, a validation and, on a better mIoU, ``best.pth``
+(``train/checkpoint.py save_deeplab_checkpoint``; the JAX trainer writes
+``.pkl``). ``DEEPLAB.continue_training`` resumes from ``DIR/latest.pth``
+(step, model, momentum and the best score, as the reference does; the JAX
+trainer restores the step and resets the best score). DEEPLAB.ckpt, where
+given, is the model's start, as in the reference's main.py (the JAX
+trainer starts from its seed alone). Embedding models
+train with 16 classes and the open-world unknown remap
+(main_embedding.py:336, 401); the self-distillation model trains its
+newest head only. One GPU: batches go to the device directly (the JAX
+package's multi-host input shards wait, ``ROADMAP.md``). VOC needs
+``data/voc.py``, not ported yet.
 
 ``MODEL_MAP`` names the ported factories; ``build_deeplab_model`` gives the
-config's model on a device (cuda unless asked otherwise), in eval mode and
-channels_last on CUDA; the CLIs run it under bf16 autocast with
-``--precision bf16`` (``autocast``). Checkpoints: the reference's ``.pth``
-loads natively, the JAX package's pickle through the weight bridge
-(``train/checkpoint.py load_deeplab_state``). ``double_buffered`` is the
-eval loop the CLIs share. The training loop, the train transforms, the
-MobileNet and self-distillation models wait for DeepLab training
-(``ROADMAP.md``).
+config's model on a device, channels_last on CUDA, in eval mode unless
+``train``; the CLIs run it under bf16 autocast with ``--precision bf16``
+(``autocast``). Checkpoints: the reference's ``.pth`` loads natively, the
+JAX package's pickle through the weight bridge (``train/checkpoint.py
+load_deeplab_state``). ``double_buffered`` is the eval loop the CLIs share.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
+import numpy as np
 import torch
 
 from ._common import compute_dtype, config_parser, parse_config
 from ..core.device import resolve_device
 from ..data import transforms as et
 from ..data.cityscapes import Cityscapes
+from ..data.loader import batch_iterator
+from ..data.prefetch import prefetch_to_device
+from ..metrics.segmentation import StreamSegMetrics
 from ..models import deeplab as deeplab_models
+from ..train.checkpoint import (load_deeplab_checkpoint,
+                                save_deeplab_checkpoint)
+from ..train.optim import backbone_classifier_optimizer, poly_schedule
+from ..train.state import DeepLabTrainStep
 
 MODEL_MAP = {
     "deeplabv3plus_resnet101": deeplab_models.deeplabv3plus_resnet101,
@@ -36,6 +63,8 @@ MODEL_MAP = {
         deeplab_models.deeplabv3plus_embedding_resnet101,
     "deeplabv3plus_embedding_resnet50":
         deeplab_models.deeplabv3plus_embedding_resnet50,
+    "deeplabv3plus_embedding_self_distillation_resnet101":
+        deeplab_models.deeplabv3plus_embedding_self_distillation_resnet101,
 }
 
 
@@ -45,12 +74,19 @@ def _not_ported(what: str):
 
 
 def get_transforms(crop_size: int, dataset: str = "cityscapes"):
-    """(train transform, val transform). The train transform is None until
-    DeepLab training is ported; the val transform is ExtToTensor then
-    ExtNormalize."""
+    """(train transform, val transform) of Cityscapes, main.py:103-147.
+    The train transforms draw from the ``random.Random`` they are called
+    with. Other datasets raise until their data module is ported."""
     if dataset != "cityscapes":
         raise _not_ported(f"dataset {dataset!r}")
-    return None, et.ExtCompose([et.ExtToTensor(), et.ExtNormalize()])
+    train_tf = et.ExtCompose([
+        et.ExtRandomCrop(size=(crop_size, crop_size)),
+        et.ExtColorJitter(brightness=0.5, contrast=0.5, saturation=0.5),
+        et.ExtRandomHorizontalFlip(),
+        et.ExtToTensor(),
+        et.ExtNormalize(),
+    ])
+    return train_tf, et.ExtCompose([et.ExtToTensor(), et.ExtNormalize()])
 
 
 def _unknown_target(cfg):
@@ -70,29 +106,57 @@ def get_val_dataset(cfg, val_tf):
                       transform=val_tf, unknown_target=_unknown_target(cfg))
 
 
-def build_model(cfg, *, fused_blocks: bool = False):
+def get_train_dataset(cfg, train_tf, split: str = "train"):
+    """``split`` of Cityscapes with the train transform, each sample's
+    draws seeded from DEEPLAB.random_seed, the epoch and its index."""
+    if cfg.DEEPLAB.dataset != "cityscapes":
+        raise _not_ported(f"dataset {cfg.DEEPLAB.dataset!r}")
+    return Cityscapes(cfg.DATASET.root_dataset, split=split,
+                      transform=train_tf, unknown_target=_unknown_target(cfg),
+                      seed=cfg.DEEPLAB.random_seed)
+
+
+def build_model(cfg, *, fused_blocks: bool = False,
+                dilated_impl: str = "shift"):
     """(model, num_classes) for ``DEEPLAB.model``: 16 classes for the
-    embedding models, 19 otherwise, unless DEEPLAB.num_classes is set."""
+    embedding models, 19 otherwise, unless DEEPLAB.num_classes is set; the
+    self-distillation model adds FEWSHOT.novel_cls heads."""
     d = cfg.DEEPLAB
     if d.model not in MODEL_MAP:
         raise _not_ported(f"DEEPLAB.model {d.model!r}")
     num_classes = d.num_classes or (16 if "embedding" in d.model else 19)
+    extra = ({"cls_novel": cfg.FEWSHOT.novel_cls}
+             if "self_distillation" in d.model else {})
     model = MODEL_MAP[d.model](num_classes=num_classes,
                                output_stride=d.output_stride,
-                               fused_blocks=fused_blocks)
+                               fused_blocks=fused_blocks,
+                               dilated_impl=dilated_impl, **extra)
     return model, num_classes
 
 
-def build_deeplab_model(cfg, device=None, fused_blocks: bool = False):
-    """(model, num_classes): the config's model on ``device`` in eval mode,
-    channels_last on CUDA. ``fused_blocks`` routes the backbone's eligible
-    bottlenecks through the fused kernel."""
+def build_deeplab_model(cfg, device=None, fused_blocks: bool = False, *,
+                        dilated_impl: str = "shift", train: bool = False):
+    """(model, num_classes): the config's model on ``device``, in training
+    mode if ``train`` else in eval mode, channels_last on CUDA.
+    ``fused_blocks`` routes the backbone's eligible bottlenecks through the
+    fused kernel (eval mode only); ``dilated_impl`` picks the ASPP's
+    dilated convs' form."""
     device = resolve_device(device)
-    model, num_classes = build_model(cfg, fused_blocks=fused_blocks)
-    model = model.eval().to(device)
+    model, num_classes = build_model(cfg, fused_blocks=fused_blocks,
+                                     dilated_impl=dilated_impl)
+    model = model.train(train).to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     return model, num_classes
+
+
+def frozen_heads(cfg):
+    """What the self-distillation model does not train: the backbone, the
+    base head and every novel head but the newest
+    (test_self_distillation.py:476)."""
+    return tuple(["backbone", "classifier"] +
+                 [f"classifier_{i}"
+                  for i in range(1, cfg.FEWSHOT.novel_cls)])
 
 
 def init_or_load_deeplab(model, path: str = "", *, seed: int = 0):
@@ -178,21 +242,131 @@ def double_buffered(batches, dispatch, resolve, max_images=None):
     return count, clock
 
 
-def main(cfg, precision_dtype=torch.bfloat16, max_images=None, device=None):
-    """DEEPLAB.test_only: the eval-only surface (``cli/test_deeplab.py``).
-    Training is not ported yet."""
-    if not cfg.DEEPLAB.test_only:
-        raise _not_ported("DeepLab training")
-    from . import test_deeplab
+def train_batches(dataset, batch_size: int, seed: int, device):
+    """Shuffled batches of ``dataset`` for ever, as dicts of ``image``
+    (NHWC float32) and ``label`` (int32) on ``device``, two in flight."""
+    return prefetch_to_device(
+        ({"image": image, "label": target.astype(np.int32)}
+         for image, target, _ in batch_iterator(dataset, batch_size,
+                                                seed=seed)), device)
 
-    return test_deeplab.main(cfg, precision_dtype, max_images=max_images,
-                             device=device)
+
+def train_loop(step_fn, batches, *, cur_itrs: int, total_itrs: int,
+               max_steps=None, log_every: int = 10, after_step=None):
+    """The trainers' loop: ``step_fn`` over ``batches`` from step
+    ``cur_itrs`` until ``total_itrs`` (or ``max_steps``), calling
+    ``after_step(cur_itrs, metrics)`` after each step. Every ``log_every``
+    steps the mean loss since the last log is read back (a sync point) and
+    printed as the reference prints it. Closes ``batches``. Returns
+    ``(cur_itrs, log)``, ``log`` one entry per logged step with its
+    ``loss``, the loop's wall ``seconds`` and the ``wait`` for the loader
+    so far."""
+    losses, log, wait = [], [], 0.0
+    start = time.perf_counter()
+    try:
+        while cur_itrs < total_itrs and (max_steps is None
+                                         or cur_itrs < max_steps):
+            tic = time.perf_counter()
+            batch = next(batches)
+            wait += time.perf_counter() - tic
+            metrics = step_fn(batch)
+            cur_itrs += 1
+            losses.append(metrics["loss"])
+            if cur_itrs % log_every == 0:
+                loss = float(torch.stack(losses).mean())
+                losses = []
+                print("Itrs %d/%d, Loss=%f" % (cur_itrs, total_itrs, loss),
+                      flush=True)
+                log.append({"step": cur_itrs, "loss": loss,
+                            "seconds": time.perf_counter() - start,
+                            "wait": wait})
+            if after_step is not None:
+                after_step(cur_itrs, metrics)
+    finally:
+        batches.close()
+    return cur_itrs, log
+
+
+def main(cfg, precision_dtype=torch.bfloat16, max_steps=None, device=None,
+         log_every: int = 10, max_images=None):
+    """Train as ``cfg`` says (or, with DEEPLAB.test_only, evaluate: see
+    ``cli/test_deeplab.py``; ``max_images`` applies there). Stops after
+    DEEPLAB.total_itrs steps, or at step ``max_steps``. Returns a summary:
+    ``steps`` taken, ``cur_itrs``, ``skipped``, ``best_score``,
+    ``validations`` (the mIoU of each) and ``train_loop``'s ``log``."""
+    d = cfg.DEEPLAB
+    if d.test_only:
+        from . import test_deeplab
+
+        return test_deeplab.main(cfg, precision_dtype,
+                                 max_images=max_images, device=device)
+    device = resolve_device(device)
+    train_tf, val_tf = get_transforms(d.crop_size, d.dataset)
+    train_ds = get_train_dataset(cfg, train_tf)
+    val_ds = get_val_dataset(cfg, val_tf)
+    torch.manual_seed(d.random_seed)            # dropout's generator
+    model, num_classes = build_deeplab_model(cfg, device, train=True)
+    init_or_load_deeplab(model, d.ckpt, seed=d.random_seed)
+    frozen = frozen_heads(cfg) if "self_distillation" in d.model else ()
+    optimizer = backbone_classifier_optimizer(
+        model, lr=poly_schedule(d.lr, d.total_itrs, 0.9, min_lr=1e-6),
+        momentum=0.9, weight_decay=d.weight_decay,
+        backbone_scale=0.0 if "backbone" in frozen else 0.1,
+        frozen_keys=frozen)
+    step_fn = DeepLabTrainStep(model, optimizer, loss_kind=d.loss_type,
+                               guard=True, dtype=precision_dtype)
+
+    first, best_score = 0, 0.0
+    latest = os.path.join(cfg.DIR, "latest.pth")
+    if d.continue_training and os.path.exists(latest):
+        first, best_score = load_deeplab_checkpoint(latest, model, optimizer)
+        step_fn.step = first
+        print(f"resumed from {latest} at step {first}")
+
+    from .test_deeplab import validate
+
+    metrics = StreamSegMetrics(num_classes)
+    skipped = torch.zeros((), dtype=torch.int64, device=device)
+    validations = []
+
+    def after_step(cur_itrs, m):
+        nonlocal skipped, best_score
+        skipped += m["skipped"]
+        if cur_itrs % d.val_interval:
+            return
+        save_deeplab_checkpoint(latest, model, optimizer, cur_itrs=cur_itrs,
+                                best_score=best_score)
+        print("validation...")
+        score, _, _ = validate(model.eval(), val_ds, metrics,
+                               dtype=precision_dtype,
+                               batch_size=d.val_batch_size)
+        model.train()
+        print(StreamSegMetrics.to_str(score))
+        miou = float(score["Mean IoU"])
+        validations.append(miou)
+        if miou > best_score:
+            best_score = miou
+            save_deeplab_checkpoint(os.path.join(cfg.DIR, "best.pth"), model,
+                                    optimizer, cur_itrs=cur_itrs,
+                                    best_score=best_score)
+
+    cur_itrs, log = train_loop(
+        step_fn, train_batches(train_ds, d.batch_size, d.random_seed, device),
+        cur_itrs=first, total_itrs=d.total_itrs, max_steps=max_steps,
+        log_every=log_every, after_step=after_step)
+    return {"steps": cur_itrs - first, "cur_itrs": cur_itrs,
+            "skipped": int(skipped), "best_score": best_score,
+            "validations": validations, "log": log}
 
 
 def _entry():
-    args = config_parser(__doc__).parse_args()
+    parser = config_parser(__doc__)
+    parser.add_argument("--max-steps", type=int, default=None,
+                        help="stop at this train step")
+    args = parser.parse_args()
     cfg = parse_config(args)
-    main(cfg, compute_dtype(args), device=args.device)
+    main(cfg, compute_dtype(args), max_steps=args.max_steps,
+         device=args.device)
 
 
 if __name__ == "__main__":

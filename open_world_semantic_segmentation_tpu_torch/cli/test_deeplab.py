@@ -47,6 +47,8 @@ def validate(model, val_ds, metrics: StreamSegMetrics, *, dtype,
         with autocast(dev, dtype):
             out = model(torch.from_numpy(image).to(dev))
         logits = out[0] if isinstance(out, tuple) else out
+        if isinstance(logits, list):
+            logits = logits[0]      # self-distillation: the base head
         preds = logits.argmax(-1)
         # 1 - max softmax: the reference's anomaly score
         msp = torch.softmax(logits.float(), -1).max(-1).values

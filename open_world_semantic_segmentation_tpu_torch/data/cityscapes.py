@@ -8,13 +8,23 @@ and the removed classes map to 255 (``encode_target``). ``__getitem__``
 returns (image, target, target_true): ``target`` with the remap,
 ``target_true`` with the 19-class mapping only.
 
-Custom splits (``test_car``, ``*_1_shot``, ``car_100`` ...) are directories
-under leftImg8bit/<split>.
+Custom splits (``test_car``, ``*_1_shot``, ``*_5_shot``, ``car_100`` ...)
+are directories under leftImg8bit/<split>. The JAX package's list lacks
+the 5-shot splits, so its self-distillation and distillation CLIs raise
+``ValueError`` for ``FEWSHOT.shots 5`` where they mean to read
+``test_car_5_shot``; the port accepts them.
+
+A dataset given a ``seed`` hands its transform a ``random.Random`` per
+sample, seeded from (seed, epoch, index): a sample's crop, jitter and flip
+do not depend on which loader thread reads it or when. ``set_epoch``
+(called by ``data/loader.py batch_iterator``) moves to the next epoch's
+draws.
 """
 
 from __future__ import annotations
 
 import os
+import random
 from typing import Optional, Sequence
 
 import numpy as np
@@ -33,6 +43,7 @@ _ID_TABLE_WITH_NEG = np.concatenate([CITYSCAPES_ID_TO_TRAIN_ID, [255]])
 
 VALID_SPLITS = ("train", "test_car", "val", "test_truck", "test_bus",
                 "test_car_1_shot", "test_truck_1_shot", "test_bus_1_shot",
+                "test_car_5_shot", "test_truck_5_shot", "test_bus_5_shot",
                 "car_vis", "bus_vis", "demo_video", "car_100", "car_1000")
 
 DEFAULT_UNKNOWN_TARGET = (14, 15)  # truck, bus
@@ -80,7 +91,7 @@ class Cityscapes:
     def __init__(self, root: str, split: str = "train", mode: str = "fine",
                  target_type: str = "semantic", transform=None,
                  unknown_target: Optional[Sequence[int]] =
-                 DEFAULT_UNKNOWN_TARGET):
+                 DEFAULT_UNKNOWN_TARGET, seed: Optional[int] = None):
         if split not in VALID_SPLITS:
             raise ValueError(f"Invalid split {split}")
         self.root = os.path.expanduser(root)
@@ -88,6 +99,8 @@ class Cityscapes:
         self.targets_dir = os.path.join(self.root, "gtFine", split)
         self.transform = transform
         self.unknown_target = unknown_target
+        self.seed = seed
+        self.epoch = 0
 
         if not os.path.isdir(self.images_dir) or \
                 not os.path.isdir(self.targets_dir):
@@ -107,11 +120,24 @@ class Cityscapes:
     def __len__(self):
         return len(self.images)
 
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def sample_rng(self, index) -> Optional[random.Random]:
+        """The generator of sample ``index`` in this epoch (None without a
+        seed)."""
+        if self.seed is None:
+            return None
+        state = np.random.SeedSequence(
+            (self.seed, self.epoch, int(index))).generate_state(2)
+        return random.Random(int(state[0]) << 32 | int(state[1]))
+
     def __getitem__(self, index):
         image = Image.open(self.images[index]).convert("RGB")
         target = Image.open(self.targets[index])
         if self.transform:
-            image, target = self.transform(image, target)
+            image, target = self.transform(image, target,
+                                           self.sample_rng(index))
         target, target_true = encode_target(target, self.unknown_target)
         return image, target, target_true
 

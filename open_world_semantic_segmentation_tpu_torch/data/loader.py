@@ -35,7 +35,8 @@ def batch_iterator(dataset, batch_size: int, *, shuffle: bool = True,
     ever). The order of an epoch is a permutation seeded by ``seed +
     epoch`` (numpy's default_rng), or the dataset order without
     ``shuffle``; a batch's samples are loaded by a pool of
-    ``num_workers`` threads."""
+    ``num_workers`` threads. A dataset with ``set_epoch`` is told each
+    epoch before its first sample is read."""
     if num_hosts > 1:
         raise NotImplementedError(
             "multi-host shards are not ported yet; ROADMAP.md queues them")
@@ -44,6 +45,8 @@ def batch_iterator(dataset, batch_size: int, *, shuffle: bool = True,
     pool = ThreadPoolExecutor(max_workers=num_workers) if num_workers else None
     try:
         while epochs is None or epoch < epochs:
+            if hasattr(dataset, "set_epoch"):
+                dataset.set_epoch(epoch)
             order = (np.random.default_rng(seed + epoch).permutation(n)
                      if shuffle else np.arange(n))
             for start in range(0, len(order), batch_size):

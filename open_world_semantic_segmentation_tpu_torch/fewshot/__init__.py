@@ -1,1 +1,2 @@
-"""Incremental few-shot segmentation: novel-prototype matching (NPM)."""
+"""Incremental few-shot segmentation: novel-prototype matching (NPM) and
+FT / PLM self-distillation."""

@@ -10,11 +10,18 @@ the V3+ head holds ``project`` (low-level 1x1 to 48), ``aspp`` and
 and ``project`` (1x1 over the 1280-channel concat, BN, ReLU, dropout).
 
 The ASPP projection is computed as the reference computes it, a concat and
-a 1x1 conv. The JAX package's default per-branch projection sum and its
-shift-dilated convs (``ops/dilated.py``) are the same function, written so
-for XLA's layouts and tiling; here cuDNN takes the concat and the dilated
-convs as they are (on an H100 it runs the rate-12 and rate-18 convs at
-1024x2048 with a slow direct kernel: ``PERF.md`` §5 and ``ROADMAP.md``).
+a 1x1 conv; the JAX package's default per-branch projection sum is the
+same function, written so for XLA's layouts. The ASPP's dilated 3x3 convs
+(rate 6 or more) take the shift form of ``ops/dilated.py`` by default, as
+in the JAX package: on an H100 cuDNN runs the rate-12 and rate-18 convs of
+the 1024x2048 eval in bf16 channels_last with a slow direct kernel
+(``PERF.md`` §5). ``dilated_impl="native"`` on the factories keeps cuDNN's
+conv. The state-dict keys are the same either way.
+
+The self-distillation wrapper (FT / PLM incremental learning) shares one
+backbone across the base head ``classifier`` (16 classes) and novel heads
+``classifier_1`` .. ``classifier_N`` of 16 + i classes, each a full V3+
+head with its own ASPP, and returns per-head lists.
 
 Wrappers take an NHWC image batch, as the JAX package does (a contiguous
 NHWC batch viewed as NCHW is channels_last: no copy), run the modules in
@@ -68,11 +75,12 @@ class ASPP(nn.Module):
 
     def __init__(self, in_channels: int, atrous_rates: Sequence[int] =
                  (6, 12, 18), out_channels: int = 256,
-                 bn: BNConfig = HEAD_BN):
+                 bn: BNConfig = HEAD_BN, dilated_impl: str = "shift"):
         super().__init__()
         convs = [ConvBN(in_channels, out_channels, 1, bn=bn)]
         convs += [ConvBN(in_channels, out_channels, 3, padding=r,
-                         dilation=r, bn=bn) for r in atrous_rates]
+                         dilation=r, bn=bn, dilated_impl=dilated_impl)
+                  for r in atrous_rates]
         convs.append(ASPPPooling(in_channels, out_channels, bn))
         self.convs = nn.ModuleList(convs)
         self.project = nn.Sequential(
@@ -97,10 +105,11 @@ class DeepLabHeadV3Plus(nn.Module):
 
     def __init__(self, in_channels: int, low_level_channels: int,
                  num_classes: int, aspp_dilate: Sequence[int] = (12, 24, 36),
-                 bn: BNConfig = HEAD_BN):
+                 bn: BNConfig = HEAD_BN, dilated_impl: str = "shift"):
         super().__init__()
         self.project = ConvBN(low_level_channels, 48, 1, bn=bn)
-        self.aspp = ASPP(in_channels, aspp_dilate, bn=bn)
+        self.aspp = ASPP(in_channels, aspp_dilate, bn=bn,
+                         dilated_impl=dilated_impl)
         self.classifier = nn.Sequential(*_fuse_classifier(304, num_classes,
                                                           bn))
 
@@ -116,10 +125,10 @@ class DeepLabHead(nn.Module):
 
     def __init__(self, in_channels: int, num_classes: int,
                  aspp_dilate: Sequence[int] = (12, 24, 36),
-                 bn: BNConfig = HEAD_BN):
+                 bn: BNConfig = HEAD_BN, dilated_impl: str = "shift"):
         super().__init__()
         self.classifier = nn.Sequential(
-            ASPP(in_channels, aspp_dilate, bn=bn),
+            ASPP(in_channels, aspp_dilate, bn=bn, dilated_impl=dilated_impl),
             *_fuse_classifier(256, num_classes, bn))
 
     def forward(self, feature):
@@ -153,12 +162,45 @@ class DeepLabV3PlusEmbedding(DeepLabV3Plus):
         self.magnitude = magnitude
 
     def forward(self, x):
-        emb = super().forward(x)
-        logits = one_hot_center_logits(emb, self.magnitude)
-        k = emb.shape[-1]
-        centers = self.magnitude * torch.eye(k, dtype=emb.dtype,
-                                             device=emb.device)
-        return logits, centers, emb
+        return _embedding_outputs(super().forward(x), self.magnitude)
+
+
+def _embedding_outputs(emb, magnitude: float):
+    """(distance logits, one-hot centers (K, K), emb) of an NHWK
+    embedding."""
+    centers = magnitude * torch.eye(emb.shape[-1], dtype=emb.dtype,
+                                    device=emb.device)
+    return one_hot_center_logits(emb, magnitude), centers, emb
+
+
+class DeepLabV3PlusSelfDistillation(nn.Module):
+    """Shared backbone, base head ``classifier`` of ``base_classes`` and
+    novel heads ``classifier_1`` .. ``classifier_{cls_novel}`` of
+    ``base_classes + i`` classes, each a V3+ head with its own ASPP.
+    Returns (logits list, centers list, features list), one entry per
+    head, base head first; each as the embedding wrapper returns it."""
+
+    def __init__(self, backbone: nn.Module, base_classes: int = 16,
+                 cls_novel: int = 1, aspp_dilate: Sequence[int] = (6, 12, 18),
+                 magnitude: float = 3.0, in_channels: int = 2048,
+                 low_level_channels: int = 256, dilated_impl: str = "shift"):
+        super().__init__()
+        self.backbone = backbone
+        self.magnitude = magnitude
+        self.head_names = ["classifier"] + [f"classifier_{i}"
+                                            for i in range(1, cls_novel + 1)]
+        for i, name in enumerate(self.head_names):
+            self.add_module(name, DeepLabHeadV3Plus(
+                in_channels, low_level_channels, base_classes + i,
+                aspp_dilate, dilated_impl=dilated_impl))
+
+    def forward(self, x):
+        outs = self.backbone(x.permute(0, 3, 1, 2))
+        feature = {"low_level": outs[0], "out": outs[-1]}
+        heads = [_embedding_outputs(bilinear_resize(
+            getattr(self, name)(feature).permute(0, 2, 3, 1), x.shape[1:3]),
+            self.magnitude) for name in self.head_names]
+        return tuple(list(out) for out in zip(*heads))
 
 
 def _aspp_rates(output_stride: int) -> Tuple[int, int, int]:
@@ -166,50 +208,72 @@ def _aspp_rates(output_stride: int) -> Tuple[int, int, int]:
     return (12, 24, 36) if output_stride == 8 else (6, 12, 18)
 
 
-def _v3plus(wrapper, depth, num_classes, output_stride, fused_blocks):
+def _v3plus(wrapper, depth, num_classes, output_stride, fused_blocks,
+            dilated_impl):
     bb = resnet_deeplab(depth, output_stride, fused_blocks=fused_blocks)
     head = DeepLabHeadV3Plus(2048, 256, num_classes,
-                             _aspp_rates(output_stride))
+                             _aspp_rates(output_stride),
+                             dilated_impl=dilated_impl)
     return wrapper(bb, head)
 
 
+# Every factory takes ``fused_blocks`` (the backbone's eligible
+# bottlenecks through the fused kernel, inference only) and
+# ``dilated_impl`` ("shift", the default, or "native" for the ASPP's
+# dilated convs).
 def deeplabv3plus_resnet101(num_classes=21, output_stride=16, *,
-                            fused_blocks=False):
+                            fused_blocks=False, dilated_impl="shift"):
     return _v3plus(DeepLabV3Plus, 101, num_classes, output_stride,
-                   fused_blocks)
+                   fused_blocks, dilated_impl)
 
 
 def deeplabv3plus_resnet50(num_classes=21, output_stride=16, *,
-                           fused_blocks=False):
+                           fused_blocks=False, dilated_impl="shift"):
     return _v3plus(DeepLabV3Plus, 50, num_classes, output_stride,
-                   fused_blocks)
+                   fused_blocks, dilated_impl)
 
 
 def deeplabv3_resnet101(num_classes=21, output_stride=16, *,
-                        fused_blocks=False):
+                        fused_blocks=False, dilated_impl="shift"):
     bb = resnet_deeplab(101, output_stride, fused_blocks=fused_blocks)
     return DeepLabV3Plus(bb, DeepLabHead(2048, num_classes,
-                                         _aspp_rates(output_stride)))
+                                         _aspp_rates(output_stride),
+                                         dilated_impl=dilated_impl))
 
 
 def deeplabv3plus_embedding_resnet101(num_classes=16, output_stride=16, *,
-                                      fused_blocks=False):
+                                      fused_blocks=False,
+                                      dilated_impl="shift"):
     return _v3plus(DeepLabV3PlusEmbedding, 101, num_classes, output_stride,
-                   fused_blocks)
+                   fused_blocks, dilated_impl)
 
 
 def deeplabv3plus_embedding_resnet50(num_classes=16, output_stride=16, *,
-                                     fused_blocks=False):
+                                     fused_blocks=False,
+                                     dilated_impl="shift"):
     """The embedding head on ResNet-50: the JAX package's API extension
     (the reference composes the embedding wrapper with ResNet-101)."""
     return _v3plus(DeepLabV3PlusEmbedding, 50, num_classes, output_stride,
-                   fused_blocks)
+                   fused_blocks, dilated_impl)
 
 
-def init_deeplab_weights(model: DeepLabV3Plus, generator: torch.Generator):
+def deeplabv3plus_embedding_self_distillation_resnet101(
+        num_classes=16, cls_novel=1, output_stride=16, *,
+        fused_blocks=False, dilated_impl="shift"):
+    bb = resnet_deeplab(101, output_stride, fused_blocks=fused_blocks)
+    return DeepLabV3PlusSelfDistillation(
+        bb, num_classes, cls_novel, _aspp_rates(output_stride),
+        dilated_impl=dilated_impl)
+
+
+def init_deeplab_weights(model: nn.Module, generator: torch.Generator):
     """Random initialisation of the JAX package's schemes, drawn from
     ``generator``: backbone convs over fan_out, head convs over fan_in
-    (kaiming normal), conv biases zero, BN weight 1 and bias 0."""
+    (kaiming normal), conv biases zero, BN weight 1 and bias 0. Every
+    child other than ``backbone`` is a head (``classifier``, and
+    ``classifier_1`` .. of the self-distillation model)."""
     init_module(model.backbone, generator, fan_out=True)
-    init_module(model.classifier, generator, fan_out=False)
+    for name, child in model.named_children():
+        if name != "backbone":
+            init_module(child, generator, fan_out=False)
     return model

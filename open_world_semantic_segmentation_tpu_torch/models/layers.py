@@ -5,6 +5,13 @@ checkpoints load with plain ``load_state_dict``: ``ConvBN`` is a
 ``Sequential`` (conv at index 0, BN at 1), which gives the reference's
 ``downsample.0`` / ``downsample.1`` and ``cbr_deepsup.0`` / ``.1`` keys.
 
+``ConvBN`` routes a 3x3, stride-1, ungrouped conv with dilation of 6 or
+more and padding equal to its dilation (the ASPP's atrous branches)
+through ``ops/dilated.py`` by default, as the JAX package's
+``ConvBN._use_shift_dilated`` does; ``dilated_impl="native"`` keeps the
+plain conv (the JAX package's ``OWSS_DILATED_IMPL=native``). Either way
+the conv is an ``nn.Conv2d`` with the same ``weight``.
+
 Batch norm in training mode follows the JAX package (flax ``BatchNorm``),
 not ``torch.nn.BatchNorm2d``, where the two differ: the running variance
 takes in the biased batch variance (torch takes the unbiased one, n/(n-1)
@@ -19,6 +26,10 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.dilated import dilated_conv3x3_shift
+
+DILATED_IMPLS = ("shift", "native")
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -67,15 +78,39 @@ class BNConfig:
                            momentum=self.momentum)
 
 
+class ShiftDilatedConv2d(nn.Conv2d):
+    """An ``nn.Conv2d`` (3x3, stride 1, padding = dilation) computed as
+    ``ops.dilated.dilated_conv3x3_shift``."""
+
+    def forward(self, x):
+        return dilated_conv3x3_shift(x, self.weight, self.dilation)
+
+
+def use_shift_dilated(kernel_size: int, stride: int, padding: int,
+                      dilation: int, groups: int,
+                      dilated_impl: str = "shift") -> bool:
+    """The JAX package's ``ConvBN._use_shift_dilated``: 3x3, stride 1,
+    ungrouped, dilation at least 6, padding equal to the dilation."""
+    if dilated_impl not in DILATED_IMPLS:
+        raise ValueError(f"dilated_impl {dilated_impl!r}: one of "
+                         f"{DILATED_IMPLS}")
+    return (dilated_impl == "shift" and kernel_size == 3 and stride == 1
+            and groups == 1 and dilation >= 6 and padding == dilation)
+
+
 class ConvBN(nn.Sequential):
-    """Conv2d (no bias) + BatchNorm2d + optional ReLU, NCHW."""
+    """Conv2d (no bias) + BatchNorm2d + optional ReLU, NCHW. An eligible
+    dilated conv takes the shift form unless ``dilated_impl="native"``."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 0,
                  dilation: int = 1, groups: int = 1, relu: bool = True,
-                 bn: BNConfig = BNConfig()):
-        layers = [nn.Conv2d(in_channels, out_channels, kernel_size, stride,
-                            padding, dilation, groups, bias=False),
+                 bn: BNConfig = BNConfig(), dilated_impl: str = "shift"):
+        conv = (ShiftDilatedConv2d if use_shift_dilated(
+            kernel_size, stride, padding, dilation, groups, dilated_impl)
+            else nn.Conv2d)
+        layers = [conv(in_channels, out_channels, kernel_size, stride,
+                       padding, dilation, groups, bias=False),
                   bn.make(out_channels)]
         if relu:
             layers.append(nn.ReLU(inplace=True))

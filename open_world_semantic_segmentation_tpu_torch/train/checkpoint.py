@@ -17,17 +17,32 @@
   state dict) as it is, or the JAX package's pickle (its ``"tree"`` holds
   the variables, or a train state with ``params`` and ``batch_stats``)
   through ``train/convert.py deeplab_state_dict_from_jax``.
+- ``load_partial`` loads the keys a state dict shares with a model, of
+  equal shapes, and leaves the rest at their initial values: the
+  reference's ``strict=False`` transfer (test_self_distillation.py:511-518)
+  and the JAX package's ``load_checkpoint(partial=True)``. A fresh
+  ``classifier_1``, or a 17-class student's classifier, keeps its init.
+- ``save_model_checkpoint``: ``{"model_state", ...}``, what the
+  self-distillation and distillation CLIs write.
+- ``save_deeplab_checkpoint`` / ``load_deeplab_checkpoint``: the DeepLab
+  trainer's ``latest.pth`` and ``best.pth``, the reference's dict
+  (main.py:315-325) ``{"cur_itrs", "model_state", "optimizer_state",
+  "best_score"}``; ``load_deeplab_state`` and the reference's tools read
+  its ``model_state``. The reference's ``scheduler_state`` is not written:
+  the port's schedule is a function of the step count (``cur_itrs``). The
+  JAX trainer writes ``latest.pkl`` / ``best.pkl`` instead.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
 from .convert import deeplab_state_dict_from_jax, state_dict_from_jax
+from .optim import load_optimizer_state, optimizer_state
 
 
 def save_epoch_checkpoint(model, encoder_path: str, decoder_path: str):
@@ -35,11 +50,9 @@ def save_epoch_checkpoint(model, encoder_path: str, decoder_path: str):
     written under a temporary name and renamed, so a reader never sees half
     a checkpoint."""
     for part, path in (("encoder", encoder_path), ("decoder", decoder_path)):
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        state = {k: v.detach().cpu()
-                 for k, v in getattr(model, part).state_dict().items()}
-        torch.save(state, path + ".tmp")
-        os.replace(path + ".tmp", path)
+        _atomic_save({k: v.detach().cpu()
+                      for k, v in getattr(model, part).state_dict().items()},
+                     path)
 
 
 def load_jax_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor],
@@ -69,3 +82,47 @@ def load_deeplab_state(path: str) -> Dict[str, torch.Tensor]:
     return deeplab_state_dict_from_jax({
         "params": tree["params"],
         "batch_stats": tree.get("batch_stats", {})})
+
+
+def _atomic_save(obj, path: str):
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save(obj, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def load_partial(model: torch.nn.Module,
+                 state: Dict[str, torch.Tensor]) -> List[str]:
+    """Load into ``model`` every entry of ``state`` whose key it has with
+    the same shape; return the model's keys left as they were."""
+    own = model.state_dict()
+    kept = [k for k, v in own.items()
+            if k not in state or tuple(state[k].shape) != tuple(v.shape)]
+    model.load_state_dict({k: own[k] if k in kept else state[k]
+                           for k in own})
+    return kept
+
+
+def save_model_checkpoint(path: str, model, **metadata):
+    """``{"model_state": ..., **metadata}`` on the CPU, the reference's
+    DeepLab layout: what ``load_deeplab_state`` reads."""
+    _atomic_save({"model_state": {k: v.detach().cpu()
+                                  for k, v in model.state_dict().items()},
+                  **metadata}, path)
+
+
+def save_deeplab_checkpoint(path: str, model, optimizer, *, cur_itrs: int,
+                            best_score: float):
+    """The DeepLab train state in the reference's dict."""
+    save_model_checkpoint(path, model, cur_itrs=int(cur_itrs),
+                          optimizer_state=optimizer_state(optimizer),
+                          best_score=float(best_score))
+
+
+def load_deeplab_checkpoint(path: str, model, optimizer) -> Tuple[int,
+                                                                  float]:
+    """Restore ``save_deeplab_checkpoint``'s model and optimizer state (the
+    optimizer's schedules stay); return ``(cur_itrs, best_score)``."""
+    ckpt = torch.load(path, map_location="cpu")
+    model.load_state_dict(ckpt["model_state"])
+    load_optimizer_state(optimizer, ckpt["optimizer_state"])
+    return int(ckpt["cur_itrs"]), float(ckpt["best_score"])

@@ -5,12 +5,15 @@ The inverse of the JAX package's ``train/convert.py``
 tree of a ``SegmentationModel``, given as numpy arrays, becomes the encoder
 and decoder state dicts of the port, whose keys are the reference's. Conv
 kernels go HWIO -> OIHW; BN ``scale/bias`` (params) and ``mean/var``
-(batch_stats) go to ``weight/bias/running_mean/running_var``.
+(batch_stats) go to ``weight/bias/running_mean/running_var``, in float32
+(float64 arrays stay float64).
 
 ``deeplab_state_dict_from_jax`` does the same for the DeepLab models
 (the inverse of the JAX package's ``convert_deeplab_checkpoint``): the
 backbone's ``stem1`` becomes ``backbone.conv1`` / ``bn1``, the head goes
-under ``classifier.`` with the reference's names. The ASPP projection's
+under ``classifier.`` with the reference's names; the self-distillation
+model's heads ``classifier``, ``classifier_1`` .. keep their names (the
+JAX ``convert_deeplab_checkpoint(head_names=...)``). The ASPP projection's
 one (1, 1, 1280, 256) kernel is the same parameter whether the JAX package
 computes it per branch or over the concat.
 
@@ -58,24 +61,24 @@ _ASPP_RULES = (
 
 
 def _deeplab_head_rules(aspp: str, fuse: int):
-    """The head under ``classifier.``: the ASPP at prefix ``aspp``, the
-    3x3 fuse conv and BN at ``classifier.classifier.{fuse, fuse + 1}`` and
-    the classifier conv at ``fuse + 3``."""
+    """A head relative to its module: the ASPP at prefix ``aspp``, the 3x3
+    fuse conv and BN at ``classifier.{fuse, fuse + 1}`` and the classifier
+    conv at ``fuse + 3``."""
     return tuple((pattern, aspp + repl) for pattern, repl in _ASPP_RULES) + (
-        (r"fuse/conv", f"classifier.classifier.{fuse}"),
-        (r"fuse/bn", f"classifier.classifier.{fuse + 1}"),
-        (r"classifier/conv", f"classifier.classifier.{fuse + 3}"),
+        (r"fuse/conv", f"classifier.{fuse}"),
+        (r"fuse/bn", f"classifier.{fuse + 1}"),
+        (r"classifier/conv", f"classifier.{fuse + 3}"),
     )
 
 
 # the V3+ head (DeepLabHeadV3Plus): low-level projection, ASPP, then one
 # Sequential of fuse and classifier
 _DEEPLAB_V3PLUS_RULES = (
-    (r"project/conv", "classifier.project.0"),
-    (r"project/bn", "classifier.project.1"),
-) + _deeplab_head_rules("classifier.aspp.", 0)
+    (r"project/conv", "project.0"),
+    (r"project/bn", "project.1"),
+) + _deeplab_head_rules("aspp.", 0)
 # the V3 head (DeepLabHead): one Sequential, ASPP at index 0
-_DEEPLAB_V3_RULES = _deeplab_head_rules("classifier.classifier.0.", 1)
+_DEEPLAB_V3_RULES = _deeplab_head_rules("classifier.0.", 1)
 _LEAVES = {
     ("params", "kernel"): "weight",
     ("params", "bias"): "bias",
@@ -108,7 +111,9 @@ def _convert_part(params, batch_stats, rules) -> Dict[str, torch.Tensor]:
         for path, value in _flatten(tree):
             module_path, leaf = path.rsplit("/", 1)
             prefix = _torch_prefix(module_path, rules)
-            arr = np.asarray(value, dtype=np.float32)
+            arr = np.asarray(value)
+            if arr.dtype != np.float64:     # float64 stays (tests' trees)
+                arr = arr.astype(np.float32)
             if leaf == "kernel":
                 arr = np.transpose(arr, (3, 2, 0, 1))   # HWIO -> OIHW
             state[f"{prefix}.{_LEAVES[(collection, leaf)]}"] = \
@@ -132,18 +137,24 @@ def state_dict_from_jax(variables) -> Tuple[Dict[str, torch.Tensor],
 
 
 def deeplab_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
-    """flax variables of a JAX ``DeepLabV3Plus`` or
-    ``DeepLabV3PlusEmbedding`` (numpy arrays, ``backbone`` and ``head``)
-    -> the port's DeepLab state dict. A V3+ head (it has ``project``) or
-    a V3 head is told apart by its parameters."""
+    """flax variables of a JAX ``DeepLabV3Plus``, ``DeepLabV3PlusEmbedding``
+    (numpy arrays, ``backbone`` and ``head``) or
+    ``DeepLabV3PlusSelfDistillation`` (``backbone``, ``classifier``,
+    ``classifier_1`` ..) -> the port's DeepLab state dict. A V3+ head (it
+    has ``project``) or a V3 head is told apart by its parameters."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     backbone_rules = tuple((pattern, "backbone." + repl)
                            for pattern, repl in _ENCODER_RULES)
-    head = params["head"]
-    head_rules = (_DEEPLAB_V3PLUS_RULES if "project" in head
-                  else _DEEPLAB_V3_RULES)
     state = _convert_part(params["backbone"], stats.get("backbone", {}),
                           backbone_rules)
-    state.update(_convert_part(head, stats.get("head", {}), head_rules))
+    for name, head in params.items():
+        if name == "backbone":
+            continue
+        prefix = "classifier." if name == "head" else name + "."
+        rules = (_DEEPLAB_V3PLUS_RULES if "project" in head
+                 else _DEEPLAB_V3_RULES)
+        state.update(_convert_part(
+            head, stats.get(name, {}),
+            tuple((pattern, prefix + repl) for pattern, repl in rules)))
     return state

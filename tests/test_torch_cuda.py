@@ -10,7 +10,12 @@ Tolerances: atol 2e-5 for the knn map (a sum of 128 float32 cosines), as
 1e-4 in float32 (summation order; TF32 off) and 5e-2 in bfloat16 (y1 and
 y2 rounded to 8 bits of mantissa), as ``tests/test_pallas_block.py``
 holds the TPU kernel; 1e-5 for the device OOD metrics, as
-``tests/test_metrics_device.py`` holds the JAX module.
+``tests/test_metrics_device.py`` holds the JAX module. The shift form of
+the ASPP's dilated convs (``ops/dilated.py``, PyTorch ops, no kernel of
+its own) against cuDNN's conv, forward and backward, channels_last: in
+float32 (TF32 off) within 1e-4 of the largest magnitude (summation
+order), in bf16 within 5e-2 (each tap's product rounded to bf16 before the
+float32 sum, cuDNN's one float32 sum rounded once).
 """
 
 import numpy as np
@@ -31,6 +36,8 @@ from open_world_semantic_segmentation_tpu_torch.train.optim import (
     poly_schedule, two_group_optimizer)
 from open_world_semantic_segmentation_tpu_torch.train.state import (
     AnomalyTrainStep)
+from open_world_semantic_segmentation_tpu_torch.ops.dilated import (
+    dilated_conv3x3_shift)
 from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
     fused_bottleneck, fused_bottleneck_launcher, fused_bottleneck_plain)
 from open_world_semantic_segmentation_tpu_torch.ops.knn import (
@@ -325,3 +332,29 @@ def test_bf16_train_step_on_cuda(cuda):
     assert not metrics["skipped"].item()
     assert any(not torch.equal(p, b)
                for p, b in zip(model.parameters(), before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [6, 12, 18])
+def test_dilated_shift_matches_native_conv(cuda, no_tf32, dtype, rate):
+    """Forward and the gradients of x and the weight, at the training map
+    of the ASPP (48x48, cut to 64 channels in and 32 out)."""
+    rng = np.random.default_rng(rate)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 48, 48)).astype(
+        np.float32)).to(cuda, dtype).to(memory_format=torch.channels_last)
+    w = torch.from_numpy((rng.standard_normal((32, 64, 3, 3)) / 24).astype(
+        np.float32)).to(cuda, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    outs = []
+    for fn in (lambda a, b: dilated_conv3x3_shift(a, b, rate),
+               lambda a, b: torch.nn.functional.conv2d(
+                   a, b, padding=rate, dilation=rate)):
+        a, b = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fn(a, b)
+        assert y.dtype == dtype
+        y.float().square().sum().backward()
+        outs.append([t.float().cpu() for t in (y, a.grad, b.grad)])
+    for got, want in zip(*outs):
+        err = float((got - want).abs().max())
+        assert err <= tol * float(want.abs().max()), err

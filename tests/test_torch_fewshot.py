@@ -136,7 +136,8 @@ def test_prototype_json_roundtrip(tmp_path):
 
 def _swap_in_twins(mp):
     mp.setattr(main_deeplab, "build_model",
-               lambda cfg, fused_blocks=False: (port_twin(fused_blocks), 16))
+               lambda cfg, fused_blocks=False, **_: (port_twin(fused_blocks),
+                                                     16))
     for module in (jax_main_deeplab, jax_eval_embedding,
                    jax_extract_prototypes):
         mp.setattr(module, "build_model",

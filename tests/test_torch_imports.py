@@ -15,6 +15,8 @@ from open_world_semantic_segmentation_tpu_torch.cli import eval_embedding
 from open_world_semantic_segmentation_tpu_torch.cli import eval_ood
 from open_world_semantic_segmentation_tpu_torch.cli import extract_prototypes
 from open_world_semantic_segmentation_tpu_torch.cli import main_deeplab
+from open_world_semantic_segmentation_tpu_torch.cli import main_distillation
+from open_world_semantic_segmentation_tpu_torch.cli import self_distillation
 from open_world_semantic_segmentation_tpu_torch.cli import test_deeplab
 from open_world_semantic_segmentation_tpu_torch.cli import train_embedding
 from open_world_semantic_segmentation_tpu_torch.core.config import (
@@ -42,7 +44,8 @@ for name in ("cli.train_embedding", "cli.train", "data.native",
              "data.transforms", "data.cityscapes", "data.loader",
              "fewshot", "fewshot.prototypes", "cli.main_deeplab",
              "cli.extract_prototypes", "cli.eval_embedding",
-             "cli.test_deeplab"):
+             "cli.test_deeplab", "ops.dilated", "fewshot.self_distillation",
+             "cli.self_distillation", "cli.main_distillation"):
     assert port.__name__ + "." + name in names, name
 """
 
@@ -53,7 +56,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(maxsplit=1)
-    assert int(n) >= 52 and bad.strip() == "[]", out.stdout
+    assert int(n) >= 56 and bad.strip() == "[]", out.stdout
 
 
 def test_entry_points_refuse_cuda_without_gpu():
@@ -96,6 +99,19 @@ def test_deeplab_entry_points_refuse_cuda_without_gpu():
         test_deeplab.main(cfg)
 
 
+def test_deeplab_training_entry_points_refuse_cuda_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: CUDA is a valid choice here")
+    cfg = load_config("configs/self_distillation.yaml")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main_deeplab.main(load_config("configs/cityscapes_embedding.yaml"))
+    for mode in ("train", "eval"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            self_distillation.main(cfg, mode=mode)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main_distillation.main(cfg)
+
+
 def test_deeplab_entry_points_raise_for_what_is_not_ported(tmp_path):
     """The options whose modules wait in ROADMAP.md raise, naming it."""
     cfg = load_config("configs/cityscapes_embedding.yaml",
@@ -106,8 +122,10 @@ def test_deeplab_entry_points_raise_for_what_is_not_ported(tmp_path):
                       ["DEEPLAB.save_val_results", "True"])
     with pytest.raises(NotImplementedError, match="visualize.*ROADMAP"):
         test_deeplab.main(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="training.*ROADMAP"):
+    cfg.DEEPLAB.dataset = "voc"
+    with pytest.raises(NotImplementedError, match="voc.*ROADMAP"):
         main_deeplab.main(cfg, device="cpu")
+    cfg.DEEPLAB.dataset = "cityscapes"
     cfg.DEEPLAB.model = "deeplabv3plus_mobilenet"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main_deeplab.build_model(cfg)

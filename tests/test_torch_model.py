@@ -58,12 +58,18 @@ def jax_twin_variables(seed=0):
     return fill_jax_variables(jax_twin(), (1, 64, 64, 3), seed)
 
 
-def fill_jax_variables(module, input_shape, seed):
-    """``module``'s variable tree (shapes from ``init``), filled from a
-    numpy seed: kernels he-normal over fan_in, BN scale/bias/mean/var
-    random around the identity."""
-    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0),
-                            jnp.zeros(input_shape))
+def jax_variable_shapes(module, input_shape):
+    """``module``'s variable tree as shapes, from ``init``."""
+    return jax.eval_shape(module.init, jax.random.PRNGKey(0),
+                          jnp.zeros(input_shape))
+
+
+def fill_jax_variables(module, input_shape, seed, shapes=None):
+    """``module``'s variable tree (``shapes``, else the shapes from
+    ``init``), filled from a numpy seed: kernels he-normal over fan_in, BN
+    scale/bias/mean/var random around the identity."""
+    if shapes is None:
+        shapes = jax_variable_shapes(module, input_shape)
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
