@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU (H100): kernels, the
-StreetHazards open-set eval, DML embedding training, the Cityscapes NPM
-few-shot eval, DeepLab training and the incremental few-shot fine-tuning
-(FT / PLM self-distillation, teacher-student distillation), end to end.
+StreetHazards open-set eval (PIL and device pyramids, every scoring
+method, visualisation, the closed-set and reconstruction evals), DML
+embedding training, the Cityscapes NPM few-shot eval (with score
+calibration, result PNGs and Fishyscapes Lost&Found), DeepLab training
+and the incremental few-shot fine-tuning (FT / PLM self-distillation,
+teacher-student distillation), end to end.
 
     python3 chip_smoke.py
 
@@ -44,6 +47,25 @@ Phases (any failure exits non-zero and prints no result):
    fused, timed alternately six times each, and the routed bottleneck
    modules of both models timed the same way on their inputs at every
    level (medians and every round printed);
+4b. the rest of the StreetHazards eval, each run with every kernel's
+   launch count zeroed just before and read just after (none launched):
+   dissum with device metrics and ``device_pyramid=True`` on the 16 images
+   (imgs/s, loader wait and device s/img printed beside the PIL pyramid's
+   run; one image's pyramid on cuda against the CPU within 1e-5); the
+   device pyramid's batched device-metrics chain against its per-image
+   host-sweep twin on 4 images (maxlogit, float32, TF32 off: metrics
+   within 1e-3, every conf map finite and not constant); one
+   image's scores through ``crf-gauss`` and ``crf``: ms per image (CUDA
+   events) and the peak memory each adds, and the CRF on cuda against the
+   CPU in float32 with TF32 off (Q within 1e-4; crf-gauss on the whole
+   map, crf on a 64x128 crop); ``cli.eval_ood.main`` with each CRF on 4
+   images (every conf map float32, finite, in [0, 1], checked after the
+   timed run); ``VAL.visualize``
+   on 2 images (two 720x3840 grids); a seeded ppm_deepsup checkpoint with
+   a data-started BN, ``cli.test_closed.main`` on 4 images (4 prediction
+   PNGs of 720x1280, values 1..13) and ``cli.eval_ood_rec.main`` in
+   float32 on 4 images against a reconstructed tree (the same images with
+   seeded noise): imgs/s, peak memory, finite metrics;
 5. train phase: a synthetic training tree of 96 720x1280 images;
    ``cli.train_embedding.main`` on cuda in bf16 for 12 steps of the
    full-width model with configs/train_embedding.yaml (batch 8, short
@@ -78,6 +100,14 @@ Phases (any failure exits non-zero and prints no result):
    conv in bf16 channels_last, forward at 1x2048x64x128 and forward plus
    backward at 8x2048x48x48 (within 5e-2 of the largest magnitude), then
    the 1024x2048 forward with each, alternately;
+7b. the rest of the Cityscapes eval, launches zeroed and read around each
+   run (none launched): ``cli.eval_embedding.main`` with
+   FEWSHOT.calibrate_scores on 4 val images (the GMM/ECDF fit on 4, its
+   state saved and reloaded; a finite calibrated AUROC / AUPR / FPR95);
+   ``cli.test_deeplab.main`` with DEEPLAB.save_val_results on 2 images (10
+   PNGs of 1024x2048); ``cli.eval_fishyscapes.main`` (native) on 4
+   synthetic Lost&Found images of 1024x2048, for entropy, msp and dissum
+   (finite AP / AUROC / FPR95);
 8. deeplab train phase: a synthetic Cityscapes tree of 1024x2048 images
    (16 train, 5 in ``test_car_5_shot``, 2 val); ``cli.main_deeplab.main``
    trains deeplabv3plus_embedding_resnet101 (configs/cityscapes_embedding
@@ -111,6 +141,7 @@ and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -276,6 +307,23 @@ DILATED_TOL = 5e-2
 CITYSCAPES_TRAIN_RAW_IDS = (7, 8, 11, 12, 13, 17, 19, 20, 21, 22, 23, 24,
                             25, 26, 27, 28, 31, 32, 33)
 CAR, TRUCK, BUS = 26, 27, 28
+# the rest of the eval surface (device pyramid, CRF, visualisation,
+# test_closed, eval_ood_rec; calibration, save_val_results, Fishyscapes)
+PYRAMID_TOL = 1e-5              # the device pyramid, cuda against the CPU
+# the device pyramid's chain (uint8 image -> pyramid on the card -> batched
+# forward -> device metrics) against the same pyramid through the per-image
+# forward and the host float64 sweep, maxlogit, float32 with TF32 off: the
+# two differ only by the batch-size-dependent conv rounding (about 1e-6 of
+# the logits), which moves the rank of a few of the 921600 pixels and the
+# argmax of fewer; a wrong image, level or batch order moves them by 1e-2
+# and more
+PYRAMID_METRIC_ATOL = 1e-3
+N_CRF_IMAGES = 4
+CRF_TOL = 1e-4                  # of Q, cuda against the CPU, float32
+CRF_CROP = (64, 128)            # the bilateral CRF's CPU check
+N_REST_IMAGES = 4               # test_closed and eval_ood_rec
+N_CALIB_IMAGES = 4              # calibration fit and calibrated eval
+N_LAF_IMAGES = 4                # synthetic Lost&Found, 1024x2048
 SEED = 0
 DEVICE = "cuda"
 
@@ -733,13 +781,14 @@ def write_street_tree(root, n, size, seed, split="test"):
 
 def write_random_checkpoint(cfg, root, seed):
     """Seeded random weights for the full-width model, saved as the
-    reference's encoder/decoder .pth pair, with a data-dependent start:
-    BN running statistics are taken from one forward over the first two
-    eval images, so every BN normalises its input as a trained one would,
-    and the last 1x1 conv is scaled to an embedding std of 0.8, the scale
-    of the one-hot centers (magnitude 3). Without that the 50-layer residual
-    stream grows until every dissum value clips at 400 and the min-max
-    normalised map is 0/0."""
+    reference's encoder/decoder .pth pair in ``root``, with a
+    data-dependent start: BN running statistics are taken from one forward
+    over the first two eval images, so every BN normalises its input as a
+    trained one would, and the last 1x1 conv is scaled to an embedding std
+    of 0.8, the scale of the one-hot centers (magnitude 3), or for a plain
+    decoder (ppm_deepsup) to a logit std of 1. Without that the 50-layer
+    residual stream grows until every dissum value clips at 400 and the
+    min-max normalised map is 0/0."""
     import torch
 
     from open_world_semantic_segmentation_tpu_torch.cli._common import (
@@ -759,12 +808,16 @@ def write_random_checkpoint(cfg, root, seed):
     for m in model.modules():
         if isinstance(m, torch.nn.BatchNorm2d):
             m.momentum = None          # running stats = this batch's
+    embedding = cfg.MODEL.arch_decoder.endswith("embedding")
+    target_std = 0.8 if embedding else 1.0
     with torch.no_grad():
         model.train()(img, seg_size=seg_size)
-        emb_std = model.eval()(img, seg_size=seg_size)["ft"].std().item()
+        out = model.eval()(img, seg_size=seg_size)
+        std = (out["ft"] if embedding else out["scores"]).std().item()
         head = model.decoder.conv_last[4]
-        head.weight.mul_(0.8 / emb_std)
-        head.bias.mul_(0.8 / emb_std)
+        head.weight.mul_(target_std / std)
+        head.bias.mul_(target_std / std)
+    os.makedirs(root, exist_ok=True)
     paths = []
     for part in ("encoder", "decoder"):
         path = os.path.join(root, f"{part}_epoch_0.pth")
@@ -779,8 +832,6 @@ def slice_phase(root):
     from open_world_semantic_segmentation_tpu_torch.cli import eval_ood
     from open_world_semantic_segmentation_tpu_torch.core.config import (
         load_config)
-    from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
-        fused_bottleneck)
     from open_world_semantic_segmentation_tpu_torch.ops.knn import knn_cosine
     from open_world_semantic_segmentation_tpu_torch.openset import scoring
 
@@ -803,15 +854,12 @@ def slice_phase(root):
     n_batches = -(-N_IMAGES // batch)
     # run name -> (OOD.ood, eval_ood.main keywords, expected launches)
     runs = {
-        "dissum": ("dissum", {}, {"knn_cosine": 0, "fused_bottleneck": 0}),
-        "knn": ("knn", {}, {"knn_cosine": N_IMAGES, "fused_bottleneck": 0}),
+        "dissum": ("dissum", {}, {}),
+        "knn": ("knn", {}, {"knn_cosine": N_IMAGES}),
         "dissum_fused": ("dissum", {"fused_blocks": True},
-                         {"knn_cosine": 0,
-                          "fused_bottleneck": n_batches * n_levels * routed}),
-        "dissum_device_metrics": ("dissum", {"device_metrics": True},
-                                  {"knn_cosine": 0, "fused_bottleneck": 0}),
+                         {"fused_bottleneck": n_batches * n_levels * routed}),
+        "dissum_device_metrics": ("dissum", {"device_metrics": True}, {}),
     }
-    kernels = {"knn_cosine": knn_cosine, "fused_bottleneck": fused_bottleneck}
     summaries = {}
     launches = {}
     # the dtypes of the features the eval hands the knn kernel
@@ -823,15 +871,13 @@ def slice_phase(root):
 
     for run, (method, kw, want) in runs.items():
         cfg.OOD.ood = method
-        for fn in kernels.values():
-            fn.launches = 0
         scoring.knn_cosine = knn_spy
         try:
-            result = eval_ood.main(cfg, torch.bfloat16, batch_images=batch,
-                                   device=DEVICE, **kw)
+            result, launches[run] = counted(run, lambda kw=kw: eval_ood.main(
+                cfg, torch.bfloat16, batch_images=batch, device=DEVICE,
+                **kw), want)
         finally:
             scoring.knn_cosine = knn_cosine
-        launches[run] = {k: fn.launches for k, fn in kernels.items()}
         n = result["images"]
         summary = {k: result[k] for k in ("mean_iou", "accuracy", "auroc",
                                           "aupr", "fpr")}
@@ -851,9 +897,6 @@ def slice_phase(root):
         for key, value in summary.items():
             if value is None or not np.isfinite(value):
                 raise AssertionError(f"{run}: {key} = {value}")
-        if launches[run] != want:
-            raise AssertionError(f"{run}: launches {launches[run]}, want "
-                                 f"{want}")
         summaries[run] = summary
     log(f"knn_cosine input dtypes on the eval path: {sorted(knn_dtypes)}")
     if knn_dtypes != {"bfloat16"}:
@@ -1050,6 +1093,377 @@ def forward_comparison(cfg, rounds=6):
 
 
 # ---------------------------------------------------------------------------
+def path_kernels():
+    """Every kernel wrapper of the port, by name."""
+    from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
+        fused_bottleneck)
+    from open_world_semantic_segmentation_tpu_torch.ops.knn import knn_cosine
+
+    return {"knn_cosine": knn_cosine, "fused_bottleneck": fused_bottleneck}
+
+
+def counted(name, run, want=None):
+    """``run()`` with every kernel's launch count set to 0 just before and
+    read just after; fails unless the counts are ``want`` (a kernel that
+    ``want`` does not name: no launch). Returns ``run``'s result and the
+    counts."""
+    kernels = path_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    out = run()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    want = {**dict.fromkeys(kernels, 0), **(want or {})}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, want {want}")
+    return out, launches
+
+
+def _finite(name, values):
+    """Fails unless every number in ``values`` is finite (strings pass)."""
+    for key, value in values.items():
+        if isinstance(value, str):
+            continue
+        if value is None or not np.isfinite(value):
+            raise AssertionError(f"{name}: {key} = {value}")
+
+
+def write_rec_tree(root, odgt, rec_root, seed):
+    """The reconstructed tree of ``cli.eval_ood_rec``: each image of
+    ``odgt`` with seeded Gaussian noise (std 12), under
+    ``rec_root/<folder>/<name>`` as the reference matches them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    with open(odgt) as f:
+        records = json.loads(f.readline())
+    with ThreadPoolExecutor(8) as pool:
+        saves = []
+        for rec in records:
+            img = np.asarray(Image.open(os.path.join(root,
+                                                     rec["fpath_img"])))
+            noisy = np.clip(img + rng.normal(0, 12, img.shape), 0,
+                            255).astype(np.uint8)
+            folder, name = rec["fpath_img"].split("/")[-2:]
+            os.makedirs(os.path.join(rec_root, folder), exist_ok=True)
+            saves.append(pool.submit(Image.fromarray(noisy).save,
+                                     os.path.join(rec_root, folder, name),
+                                     compress_level=1))
+        for save in saves:
+            save.result()
+    return rec_root
+
+
+def crf_check(cfg):
+    """One image's averaged 5-scale scores (bf16 model) through both CRF
+    branches on the card: ms per image (CUDA events, 3 calls after 1) and
+    the peak memory the CRF adds; then the CRF on cuda against the CPU in
+    float32 with TF32 off: Q within CRF_TOL, crf-gauss on the whole
+    720x1280 map, the bilateral crf on a CRF_CROP crop of it (its 170
+    channels of 71-tap blurs take minutes per image on the CPU)."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli._common import (
+        build_anomaly_model, init_or_load_variables)
+    from open_world_semantic_segmentation_tpu_torch.data.odgt import (
+        ValPipeline)
+    from open_world_semantic_segmentation_tpu_torch.openset import crf
+    from open_world_semantic_segmentation_tpu_torch.openset.evaluator import (
+        multi_scale_forward)
+    from open_world_semantic_segmentation_tpu_torch.openset.scoring import (
+        compute_conf)
+
+    model = init_or_load_variables(cfg, build_anomaly_model(cfg, DEVICE))
+    item = ValPipeline(cfg.DATASET.root_dataset, cfg.DATASET.list_val,
+                       img_sizes=cfg.DATASET.imgSizes)[0]
+    pyramid = [torch.from_numpy(p).to(DEVICE) for p in item["img_data"]]
+    with torch.inference_mode(), torch.autocast(DEVICE,
+                                                dtype=torch.bfloat16):
+        scores = multi_scale_forward(model, pyramid,
+                                     item["seg_label"].shape[1:3],
+                                     want_ft=False)[0][0]
+    del model
+    out = {"scores_dtype": str(scores.dtype).split(".")[-1],
+           "map": list(scores.shape)}
+    for method in ("crf-gauss", "crf"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_time_ms(lambda m=method: compute_conf(scores, m),
+                          iters=3, warmup=1)
+        out[method] = {"ms_per_image": ms,
+                       "peak_memory_added_bytes":
+                       torch.cuda.max_memory_allocated() - base}
+    saved = _tf32_off()
+    try:
+        probs = torch.softmax(scores.float(), dim=-1)
+        h, w = CRF_CROP
+        for method, fn, p in (
+                ("crf-gauss", crf.gaussian_crf, probs),
+                ("crf", crf.bilateral_crf, probs[:h, :w].contiguous())):
+            got = fn(p).cpu()
+            want = fn(p.cpu())
+            err = float((got - want).abs().max())
+            out[method].update(cuda_vs_cpu_max_abs_q=err,
+                               checked_map=list(p.shape[:2]))
+            if not err <= CRF_TOL:
+                raise AssertionError(f"{method}: cuda vs cpu Q {err}")
+    finally:
+        _tf32_set(saved)
+    log("crf: " + json.dumps(out))
+    return out
+
+
+@contextlib.contextmanager
+def kept_confs():
+    """Yields a list that collects every conf map the evaluator computes
+    inside the block, kept on the card (no host sync in a timed loop)."""
+    from open_world_semantic_segmentation_tpu_torch.openset import evaluator
+
+    confs = []
+    compute_conf = evaluator.compute_conf
+
+    def kept(*args, **kwargs):
+        conf = compute_conf(*args, **kwargs)
+        confs.append(conf)
+        return conf
+
+    evaluator.compute_conf = kept
+    try:
+        yield confs
+    finally:
+        evaluator.compute_conf = compute_conf
+
+
+def device_pyramid_chain_check(cfg):
+    """The device pyramid's batched, device-metrics chain held against its
+    per-image, host-sweep twin on the first N_CRF_IMAGES images (maxlogit,
+    float32, TF32 off; metrics within PYRAMID_METRIC_ATOL). Every conf map
+    of the batched run must be finite and not constant: dis_sum clips on
+    every pixel at the smoke's weights (see the clipped share below), the
+    max logit does not."""
+    import copy
+
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli import eval_ood
+
+    cfg = copy.deepcopy(cfg)
+    cfg.OOD.ood = "maxlogit"
+    keys = ("auroc", "aupr", "fpr", "mean_iou", "accuracy")
+    saved = _tf32_off()
+    try:
+        with kept_confs() as confs:
+            batched, _ = counted("device pyramid chain", lambda: eval_ood.main(
+                cfg, torch.float32, max_images=N_CRF_IMAGES, batch_images=2,
+                device=DEVICE, device_metrics=True, device_pyramid=True))
+        ranges = [(float(c.min()), float(c.max()),
+                   bool(torch.isfinite(c).all())) for c in confs]
+        single, _ = counted("device pyramid per image", lambda: eval_ood.main(
+            cfg, torch.float32, max_images=N_CRF_IMAGES, batch_images=1,
+            device=DEVICE, device_pyramid=True))
+    finally:
+        _tf32_set(saved)
+    out = {"batched_device_metrics": {k: batched[k] for k in keys},
+           "per_image_host_sweep": {k: single[k] for k in keys},
+           "conf_min_max_finite": ranges}
+    out["max_abs_diff"] = max(abs(batched[k] - single[k]) for k in keys)
+    log("device pyramid chain, maxlogit, float32: " + json.dumps(out))
+    if batched["images"] != N_CRF_IMAGES or len(ranges) != N_CRF_IMAGES:
+        raise AssertionError(f"device pyramid chain: {batched['images']} "
+                             f"images, {len(ranges)} conf maps")
+    for lo, hi, finite in ranges:
+        if not (finite and lo < hi):
+            raise AssertionError(f"device pyramid chain: conf {lo}..{hi}")
+    _finite("device pyramid chain", out["batched_device_metrics"])
+    if not 0.0 < batched["auroc"] < 1.0:
+        raise AssertionError(f"device pyramid chain: auroc "
+                             f"{batched['auroc']}")
+    if not out["max_abs_diff"] <= PYRAMID_METRIC_ATOL:
+        raise AssertionError("device pyramid chain: batched device metrics "
+                             f"vs per-image host sweep {out['max_abs_diff']}")
+    return out
+
+
+def street_rest_phase(root, cfg, device_metrics_run):
+    """The rest of the StreetHazards eval surface at full width: the
+    device pyramid, the two CRFs, VAL.visualize, ``cli.test_closed`` and
+    ``cli.eval_ood_rec`` with a seeded ppm_deepsup checkpoint; see the
+    module note. ``device_metrics_run``: the slice phase's summary of the
+    PIL-pyramid run with device metrics, printed beside the new one."""
+    import copy
+
+    import torch
+    from PIL import Image
+
+    from open_world_semantic_segmentation_tpu_torch.cli import (
+        eval_ood, eval_ood_rec, test_closed)
+    from open_world_semantic_segmentation_tpu_torch.cli._common import (
+        build_anomaly_model, init_or_load_variables)
+    from open_world_semantic_segmentation_tpu_torch.core.config import (
+        load_config)
+    from open_world_semantic_segmentation_tpu_torch.data.odgt import (
+        ValPipeline)
+    from open_world_semantic_segmentation_tpu_torch.openset import evaluator
+
+    out = {}
+    # the device pyramid, beside the PIL pyramid's device-metrics run
+    cfg = copy.deepcopy(cfg)
+    cfg.OOD.ood = "dissum"
+    result, _ = counted("device pyramid", lambda: eval_ood.main(
+        cfg, torch.bfloat16, batch_images=2, device=DEVICE,
+        device_metrics=True, device_pyramid=True))
+    n = result["images"]
+    run = {"images": n, "imgs_per_s": n / result["seconds"],
+           "forward_s_per_img": result["inference_time"],
+           "wait_s_per_img": result["wait_time"],
+           "metric_s_per_img": result["metric_time"]}
+    run.update({k: result[k] for k in ("mean_iou", "accuracy", "auroc",
+                                       "aupr", "fpr")})
+    log("eval_ood dissum, device metrics, device pyramid: "
+        + json.dumps(run) + "; PIL pyramid: " + json.dumps(
+            {k: device_metrics_run[k] for k in (
+                "imgs_per_s", "forward_s_per_img", "wait_s_per_img",
+                "metric_s_per_img")}))
+    if n != N_IMAGES:
+        raise AssertionError(f"device pyramid: evaluated {n} images")
+    _finite("device pyramid", run)
+    item = ValPipeline(cfg.DATASET.root_dataset, cfg.DATASET.list_val,
+                       img_sizes=cfg.DATASET.imgSizes,
+                       device_pyramid=True)[0]
+    raw = torch.from_numpy(item["img_raw"])
+    got = evaluator.device_pyramid(raw.to(DEVICE), item["pyramid_shapes"])
+    want = evaluator.device_pyramid(raw, item["pyramid_shapes"])
+    err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    run["pyramid_cuda_vs_cpu_max_abs"] = err
+    log(f"device pyramid, cuda vs cpu, {len(got)} levels: max |diff| {err}")
+    if not err <= PYRAMID_TOL:
+        raise AssertionError(f"device pyramid: cuda vs cpu {err}")
+    run["chain_check"] = device_pyramid_chain_check(cfg)
+    # printed only: the share of the first image's pixels whose dis_sum
+    # clips at 400 (the min-max normalised map is 0/0 where all do), with
+    # the PIL pyramid the checkpoint's start was taken on and with the
+    # device pyramid (no antialiasing filter when it shrinks the image)
+    model = init_or_load_variables(cfg, build_anomaly_model(cfg, DEVICE))
+    pil = ValPipeline(cfg.DATASET.root_dataset, cfg.DATASET.list_val,
+                      img_sizes=cfg.DATASET.imgSizes)[0]
+    for name, pyramid in (("pil", [torch.from_numpy(p).to(DEVICE)
+                                   for p in pil["img_data"]]),
+                          ("device", got)):
+        with torch.inference_mode(), torch.autocast(DEVICE,
+                                                    dtype=torch.bfloat16):
+            scores = evaluator.multi_scale_forward(
+                model, pyramid, pil["seg_label"].shape[1:3],
+                want_ft=False)[0]
+        dissum = -scores[0].float().sum(-1)
+        run[f"dissum_clipped_share_{name}"] = float(
+            (dissum >= 400).float().mean())
+    del model
+    log("dissum clipped at 400, first image: " + json.dumps(
+        {k: v for k, v in run.items() if k.startswith("dissum_clipped")}))
+    out["device_pyramid"] = run
+
+    # the CRFs: 4 images each through the eval, every conf map kept on the
+    # card (4 x 3.7 MB within the peak) and checked after the run
+
+    out["crf"] = crf_check(cfg)
+    for method in ("crf-gauss", "crf"):
+        cfg.OOD.ood = method
+        torch.cuda.reset_peak_memory_stats()
+        with kept_confs() as confs:
+            result, _ = counted(method, lambda: eval_ood.main(
+                cfg, torch.bfloat16, max_images=N_CRF_IMAGES,
+                batch_images=2, device=DEVICE))
+        run = {"images": result["images"],
+               "s_per_img": result["seconds"] / result["images"],
+               "forward_s_per_img": result["inference_time"],
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        run.update({k: result[k] for k in ("auroc", "aupr", "fpr",
+                                           "mean_iou")})
+        conf_range = [(float(c.min()), float(c.max()),
+                       bool(torch.isfinite(c).all()), str(c.dtype))
+                      for c in confs]
+        log(f"eval_ood {method}: " + json.dumps(run) + " conf maps (min, "
+            "max, finite, dtype) " + json.dumps(conf_range))
+        if result["images"] != N_CRF_IMAGES or len(conf_range) != \
+                N_CRF_IMAGES:
+            raise AssertionError(f"{method}: {result['images']} images")
+        _finite(method, run)
+        for lo, hi, finite, dtype in conf_range:
+            if not (finite and 0.0 <= lo and hi <= 1.0
+                    and dtype == "torch.float32"):
+                raise AssertionError(f"{method}: conf {lo}..{hi} {dtype}")
+        out["crf"][method].update(run)
+
+    # VAL.visualize: the [image | gt | pred] grids of 2 images
+    cfg.OOD.ood = "dissum"
+    cfg.VAL.visualize = True
+    cfg.DIR = os.path.join(root, "visualize")
+    counted("visualize", lambda: eval_ood.main(
+        cfg, torch.bfloat16, max_images=2, batch_images=2, device=DEVICE))
+    grids = sorted(os.listdir(os.path.join(cfg.DIR, "result")))
+    shapes = [np.asarray(Image.open(os.path.join(cfg.DIR, "result", g))).shape
+              for g in grids]
+    log(f"VAL.visualize: {grids} {shapes}")
+    h, w = FULL_SIZE
+    if grids != ["0.png", "1.png"] or shapes != [(h, 3 * w, 3)] * 2:
+        raise AssertionError(f"VAL.visualize wrote {grids} {shapes}")
+    out["visualize"] = {"grids": grids, "shapes": shapes}
+
+    # ppm_deepsup: the closed-set test and reconstruction scoring
+    opts = ["DATASET.root_dataset", cfg.DATASET.root_dataset,
+            "DATASET.list_val", cfg.DATASET.list_val]
+    ccfg = load_config("configs/test_test.yaml", opts + [
+        "TEST.result", os.path.join(root, "closed")])
+    enc, dec = write_random_checkpoint(ccfg, os.path.join(root, "deepsup"),
+                                       SEED + 4)
+    weights = ["MODEL.weights_encoder", enc, "MODEL.weights_decoder", dec]
+    ccfg = load_config("configs/test_test.yaml", opts + weights + [
+        "TEST.result", os.path.join(root, "closed")])
+    torch.cuda.reset_peak_memory_stats()
+    result, _ = counted("test_closed", lambda: test_closed.main(
+        ccfg, torch.bfloat16, max_images=N_REST_IMAGES, device=DEVICE))
+    pngs = sorted(os.listdir(os.path.join(root, "closed", "t1")))
+    preds = [np.asarray(Image.open(os.path.join(root, "closed", "t1", p)))
+             for p in pngs]
+    run = {"images": result["images"],
+           "imgs_per_s": result["images"] / result["seconds"],
+           "forward_s_per_img": result["inference_time"],
+           "pngs": len(pngs), "png_values": [int(min(p.min() for p in preds)),
+                                             int(max(p.max() for p in preds))],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    run.update({k: result[k] for k in ("mean_iou", "accuracy", "auroc")})
+    log("test_closed ppm_deepsup: " + json.dumps(run))
+    if len(pngs) != N_REST_IMAGES or result["images"] != N_REST_IMAGES or \
+            any(p.shape != FULL_SIZE for p in preds) or \
+            not 1 <= run["png_values"][0] <= run["png_values"][1] <= 13:
+        raise AssertionError(f"test_closed: {run}")
+    _finite("test_closed", {k: run[k] for k in ("mean_iou", "accuracy")})
+    out["test_closed"] = run
+
+    rec_root = write_rec_tree(cfg.DATASET.root_dataset, cfg.DATASET.list_val,
+                              os.path.join(root, "test_rec"), SEED + 5)
+    rcfg = load_config("configs/test_ood_rec.yaml", opts + weights + [
+        "DATASET.rec_dataset", rec_root])
+    torch.cuda.reset_peak_memory_stats()
+    result, _ = counted("eval_ood_rec", lambda: eval_ood_rec.main(
+        rcfg, torch.float32, max_images=N_REST_IMAGES, device=DEVICE))
+    run = {"precision": "float32", "images": result["images"],
+           "imgs_per_s": result["images"] / result["seconds"],
+           "forward_s_per_img": result["inference_time"],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    run.update({k: result[k] for k in ("auroc", "aupr", "fpr", "mean_iou",
+                                       "accuracy")})
+    log("eval_ood_rec: " + json.dumps(run))
+    if result["images"] != N_REST_IMAGES:
+        raise AssertionError(f"eval_ood_rec: {result['images']} images")
+    _finite("eval_ood_rec", run)
+    out["eval_ood_rec"] = run
+    return out
+
+
+# ---------------------------------------------------------------------------
 def train_phase(root, weights):
     """``cli.train_embedding.main`` on cuda in bf16 at full width with
     configs/train_embedding.yaml as it stands (batch 8, short sides
@@ -1064,9 +1478,6 @@ def train_phase(root, weights):
         eval_ood, train_embedding)
     from open_world_semantic_segmentation_tpu_torch.core.config import (
         load_config)
-    from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
-        fused_bottleneck)
-    from open_world_semantic_segmentation_tpu_torch.ops.knn import knn_cosine
 
     tree = os.path.join(root, "train")
     tic = time.perf_counter()
@@ -1080,15 +1491,11 @@ def train_phase(root, weights):
         "TRAIN.epoch_iters", str(TRAIN_EPOCH_ITERS), "TRAIN.disp_iter", "1",
         "MODEL.weights_encoder", weights[0],
         "MODEL.weights_decoder", weights[1], "DIR", ckpt])
-    kernels = {"knn_cosine": knn_cosine, "fused_bottleneck": fused_bottleneck}
-    for fn in kernels.values():
-        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     tic = time.perf_counter()
-    result = train_embedding.main(cfg, torch.bfloat16, max_steps=TRAIN_STEPS,
-                                  device=DEVICE)
+    result, launches = counted("the train path", lambda: train_embedding.main(
+        cfg, torch.bfloat16, max_steps=TRAIN_STEPS, device=DEVICE))
     seconds = time.perf_counter() - tic
-    launches = {k: fn.launches for k, fn in kernels.items()}
     steps = result["log"]
     times = [e["seconds"] - (steps[i - 1]["seconds"] if i else 0.0)
              for i, e in enumerate(steps)]
@@ -1126,8 +1533,6 @@ def train_phase(root, weights):
         raise AssertionError(f"{result['skipped']} steps skipped")
     if not all(np.isfinite(e["loss"]) for e in steps):
         raise AssertionError("a train loss is not finite")
-    if any(launches.values()):
-        raise AssertionError(f"the train path launched {launches}")
 
     # the epoch-1 checkpoint through the eval
     pair = [os.path.join(ckpt, f"{part}_epoch_1.pth")
@@ -1398,9 +1803,6 @@ def deeplab_phase(root):
         load_config)
     from open_world_semantic_segmentation_tpu_torch.models.resnet import (
         Bottleneck)
-    from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
-        fused_bottleneck)
-    from open_world_semantic_segmentation_tpu_torch.ops.knn import knn_cosine
 
     tree = os.path.join(root, "cityscapes")
     tic = time.perf_counter()
@@ -1423,7 +1825,6 @@ def deeplab_phase(root):
     cfg.MODEL.weights_encoder = write_deeplab_checkpoint(
         cfg, os.path.join(root, "deeplab_embedding.pth"), SEED)
 
-    kernels = {"knn_cosine": knn_cosine, "fused_bottleneck": fused_bottleneck}
     tic = time.perf_counter()
     protos = extract_prototypes.main(cfg, torch.bfloat16, device=DEVICE)
     log(f"extract_prototypes: {len(protos)} shots in "
@@ -1440,12 +1841,11 @@ def deeplab_phase(root):
         True, DEEPLAB_ROUTED_BLOCKS * N_VAL_IMAGES)}
     summaries, launches = {}, {}
     for run, (fused, want) in runs.items():
-        for fn in kernels.values():
-            fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        result = eval_embedding.main(cfg, torch.bfloat16, device=DEVICE,
-                                     fused_blocks=fused)
-        launches[run] = {k: fn.launches for k, fn in kernels.items()}
+        result, launches[run] = counted(
+            run, lambda fused=fused: eval_embedding.main(
+                cfg, torch.bfloat16, device=DEVICE, fused_blocks=fused),
+            {"fused_bottleneck": want})
         n = result["images"]
         summary = {k: float(result[k]) for k in (
             "Overall Acc", "Mean Acc", "FreqW Acc", "Mean IoU")}
@@ -1467,9 +1867,6 @@ def deeplab_phase(root):
         if not 0 < summary["novel_pixels"] < summary["pixels"]:
             raise AssertionError(f"{run}: the NPM override took "
                                  f"{summary['novel_pixels']} pixels")
-        if launches[run] != {"knn_cosine": 0, "fused_bottleneck": want}:
-            raise AssertionError(f"{run}: launches {launches[run]}, want "
-                                 f"fused_bottleneck {want}")
         summaries[run] = summary
     log(f"npm fused run: fused_bottleneck launches "
         f"{launches['npm_fused']['fused_bottleneck']} "
@@ -1496,6 +1893,139 @@ def deeplab_phase(root):
     summaries["closed_set"] = closed
     deeplab_device_check(cfg)
     return summaries, launches["npm_fused"]["fused_bottleneck"]
+
+
+def write_laf_tree(root, n, size, seed):
+    """A Lost&Found-format tree of ``n`` images and its odgt list: labels
+    raw 0 (void, the top rows), 1 (road) and 2 (lost cargo: two blocks per
+    image); images one colour per raw id, the cargo in its own, plus
+    noise."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    h, w = size
+    palette = np.array([[0, 0, 0], [128, 64, 128], [230, 180, 40]])
+    records = []
+    with ThreadPoolExecutor(8) as pool:
+        saves = []
+        for i in range(n):
+            lab = np.ones((h, w), np.uint8)
+            lab[:h // 8] = 0
+            for _ in range(2):
+                bh, bw = h // 10, w // 12
+                r0 = rng.integers(h // 2, h - bh)
+                c0 = rng.integers(0, w - bw)
+                lab[r0:r0 + bh, c0:c0 + bw] = 2
+            img = palette[lab] + rng.normal(0, 20, (h, w, 3))
+            img = np.clip(img, 0, 255).astype(np.uint8)
+            ip, lp = f"leftImg8bit/laf/{i}.png", f"gtCoarse/laf/{i}.png"
+            for p, arr, mode in ((ip, img, "RGB"), (lp, lab, "L")):
+                path = os.path.join(root, p)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                saves.append(pool.submit(Image.fromarray(arr, mode).save,
+                                         path, compress_level=1))
+            records.append({"fpath_img": ip, "fpath_segm": lp, "height": h,
+                            "width": w})
+        for save in saves:
+            save.result()
+    odgt = os.path.join(root, "laf.odgt")
+    with open(odgt, "w") as f:
+        f.write(json.dumps(records) + "\n")
+    return odgt
+
+
+def cityscapes_rest_phase(root):
+    """The rest of the Cityscapes eval surface at 1024x2048, on the deeplab
+    phase's tree and checkpoints: ``cli.eval_embedding`` with
+    FEWSHOT.calibrate_scores, ``cli.test_deeplab`` with
+    DEEPLAB.save_val_results, ``cli.eval_fishyscapes`` (native) for each
+    method on a synthetic Lost&Found tree; see the module note."""
+    import torch
+    from PIL import Image
+
+    from open_world_semantic_segmentation_tpu_torch.cli import (
+        eval_embedding, eval_fishyscapes, test_deeplab)
+    from open_world_semantic_segmentation_tpu_torch.core.config import (
+        load_config)
+    from open_world_semantic_segmentation_tpu_torch.openset.calibration \
+        import ScoreCalibration
+
+    tree = os.path.join(root, "cityscapes")
+    embedding = os.path.join(root, "deeplab_embedding.pth")
+    out = {}
+    state = os.path.join(root, "calibration.npz")
+    cfg = load_config("configs/cityscapes_embedding.yaml", [
+        "DATASET.root_dataset", tree, "FEWSHOT.prototype_file",
+        os.path.join(root, "prototype_car_5_shot.json"),
+        "MODEL.weights_encoder", embedding,
+        "FEWSHOT.calibrate_scores", "True",
+        "FEWSHOT.calib_images", str(N_CALIB_IMAGES),
+        "FEWSHOT.calib_save", state])
+    torch.cuda.reset_peak_memory_stats()
+    tic = time.perf_counter()
+    result, _ = counted("calibrated eval_embedding", lambda:
+                        eval_embedding.main(cfg, torch.bfloat16,
+                                            max_images=N_CALIB_IMAGES,
+                                            device=DEVICE))
+    run = {k: result.get(k) for k in ("calib_auroc", "calib_aupr",
+                                      "calib_fpr95", "Mean IoU")}
+    calib = ScoreCalibration.load(state)
+    run.update(images=result["images"],
+               seconds_with_fit=time.perf_counter() - tic,
+               loop_seconds=result["seconds"],
+               device_s_per_img=result["device_s_per_img"],
+               host_s_per_img=result["metric_s_per_img"],
+               wait_s_per_img=result["wait_s_per_img"],
+               fitted_classes=sum(s.size > 0 for s in calib.sorted_samples),
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    log("eval_embedding, calibrated scores: " + json.dumps(run))
+    if result["images"] != N_CALIB_IMAGES or not run["fitted_classes"]:
+        raise AssertionError(f"calibrated eval_embedding: {run}")
+    _finite("calibrated eval_embedding", run)
+    out["calibrated_eval_embedding"] = run
+
+    results_dir = os.path.join(root, "deeplab_results")
+    ccfg = load_config("configs/cityscapes_closed.yaml", [
+        "DATASET.root_dataset", tree, "DEEPLAB.unknown_scores", "True",
+        "DEEPLAB.save_val_results", "True", "DIR", results_dir])
+    ccfg.DEEPLAB.ckpt = os.path.join(root, "deeplab_closed.pth")
+    (score, ood), _ = counted("test_deeplab save_val_results", lambda:
+                              test_deeplab.main(ccfg, torch.bfloat16,
+                                                max_images=2,
+                                                device=DEVICE))
+    pngs = sorted(os.listdir(os.path.join(results_dir, "results")))
+    shapes = {p: np.asarray(Image.open(os.path.join(
+        results_dir, "results", p))).shape for p in pngs}
+    run = {"images": score["images"], "seconds": score["seconds"],
+           "pngs": pngs, "shapes": sorted(set(shapes.values()))}
+    log("test_deeplab, save_val_results: " + json.dumps(run))
+    h, w = CITYSCAPES_SIZE
+    want = sorted(f"{i}_{k}.png" for i in range(2) for k in (
+        "image", "target", "pred", "scores", "overlay"))
+    if pngs != want or any(s[:2] != (h, w) for s in shapes.values()):
+        raise AssertionError(f"test_deeplab wrote {run}")
+    out["save_val_results"] = run
+
+    laf = os.path.join(root, "laf")
+    odgt = write_laf_tree(laf, N_LAF_IMAGES, CITYSCAPES_SIZE, SEED + 6)
+    fcfg = load_config("configs/cityscapes_embedding.yaml", [
+        "DATASET.root_dataset", laf, "DATASET.list_val", odgt])
+    fcfg.DEEPLAB.ckpt = embedding
+    out["fishyscapes"] = {}
+    for method in ("entropy", "msp", "dissum"):
+        tic = time.perf_counter()
+        res, _ = counted(f"eval_fishyscapes {method}", lambda m=method:
+                         eval_fishyscapes.main(fcfg, torch.bfloat16,
+                                               method=m, device=DEVICE))
+        res["seconds"] = time.perf_counter() - tic
+        log(f"eval_fishyscapes {method}: " + json.dumps(res))
+        if res["n_images"] != N_LAF_IMAGES:
+            raise AssertionError(f"fishyscapes {method}: {res}")
+        _finite(f"fishyscapes {method}", res)
+        out["fishyscapes"][method] = res
+    return out
 
 
 def deeplab_forward_comparison(cfg, ways=None, rounds=6, iters=5):
@@ -1682,11 +2212,7 @@ def deeplab_train_phase(root):
         main_deeplab, main_distillation, self_distillation)
     from open_world_semantic_segmentation_tpu_torch.core.config import (
         load_config)
-    from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
-        fused_bottleneck)
-    from open_world_semantic_segmentation_tpu_torch.ops.knn import knn_cosine
 
-    kernels = {"knn_cosine": knn_cosine, "fused_bottleneck": fused_bottleneck}
     tree = os.path.join(root, "cityscapes_train")
     tic = time.perf_counter()
     write_cityscapes_tree(tree, DEEPLAB_TRAIN_COUNTS, CITYSCAPES_SIZE,
@@ -1698,18 +2224,13 @@ def deeplab_train_phase(root):
     def run(name, fn, want_fused=0):
         """``fn()`` with the launch counts zeroed just before and read just
         after, and the peak memory; returns its result and its summary."""
-        for kernel in kernels.values():
-            kernel.launches = 0
         torch.cuda.reset_peak_memory_stats()
         tic = time.perf_counter()
-        result = fn()
-        launches = {k: kernel.launches for k, kernel in kernels.items()}
+        result, launches = counted(name, fn,
+                                   {"fused_bottleneck": want_fused})
         summary = {"seconds": time.perf_counter() - tic,
                    "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                    "launches": launches}
-        if launches != {"knn_cosine": 0, "fused_bottleneck": want_fused}:
-            raise AssertionError(f"{name}: launches {launches}, want "
-                                 f"fused_bottleneck {want_fused}")
         summaries[name] = summary
         return result, summary
 
@@ -2202,11 +2723,14 @@ def main():
         log("kernel phase: " + json.dumps(kernel))
     with tempfile.TemporaryDirectory() as root:
         summaries, launches, cfg = slice_phase(root)
+        street_rest = street_rest_phase(root, cfg,
+                                        summaries["dissum_device_metrics"])
         train = train_phase(root, (cfg.MODEL.weights_encoder,
                                    cfg.MODEL.weights_decoder))
         device_check(cfg)
         train_check = train_step_check()
         deeplab, deeplab_launches = deeplab_phase(root)
+        cityscapes_rest = cityscapes_rest_phase(root)
         training, (plm_launches, teacher_launches) = deeplab_train_phase(root)
     # launches on the main path: knn_cosine in the knn run, fused_bottleneck
     # in the fused run (the runs that take each kernel's path)
@@ -2223,7 +2747,11 @@ def main():
         f"{train['peak_memory_bytes']} bytes, skipped {train['skipped']}, "
         f"losses {[e['loss'] for e in train['per_step']]}; train step check "
         + json.dumps(train_check))
+    log(f"gpu: {gpu}; the rest of the StreetHazards eval: "
+        + json.dumps(street_rest))
     log(f"gpu: {gpu}; deeplab: " + json.dumps(deeplab))
+    log(f"gpu: {gpu}; the rest of the Cityscapes eval: "
+        + json.dumps(cityscapes_rest))
     log(f"gpu: {gpu}; deeplab training: " + json.dumps(training))
     log(f"total {time.perf_counter() - tic:.1f} s")
     print(gpu)

@@ -8,11 +8,15 @@ Runs on CUDA unless ``--device cpu`` is given. Prints per-class IoU, mean
 IoU / accuracy / mean inference time, and the mean per-image AUROC / AUPR /
 FPR95 in the reference's format. ``--device-metrics`` computes AUROC / AUPR
 / FPR95 on the device (``metrics/anom_device.py``); the host float64 sweep
-is the default.
+is the default. ``VAL.visualize True`` writes each image's [image | gt |
+pred] grid into ``DIR/result``. ``OOD.ood`` takes every method of
+``openset/scoring.py SCORING_METHODS``, the CRFs (``crf``, ``crf-gauss``)
+included.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import torch
@@ -31,15 +35,16 @@ from ..openset.evaluator import OODEvaluator
 
 def main(cfg, precision_dtype=torch.float32, max_images=None,
          batch_images: int = 1, device=None, seed: int = 0,
-         device_metrics: bool = False, fused_blocks: bool = False):
+         device_metrics: bool = False, fused_blocks: bool = False,
+         device_pyramid: bool = False):
     """Evaluate ``cfg`` and return the summary dict, with ``seconds``: the
     wall time of the eval loop (data, device work and host metrics).
 
-    ``device_metrics``: AUROC / AUPR / FPR95 on the device. ``fused_blocks``
-    (no CLI flag, as in the JAX package): the backbone's eligible
-    bottlenecks run through the fused kernel."""
-    if cfg.VAL.visualize:
-        raise NotImplementedError("VAL.visualize is not ported yet")
+    ``device_metrics``: AUROC / AUPR / FPR95 on the device. Python keywords
+    with no CLI flag, as in the JAX package: ``fused_blocks``, the
+    backbone's eligible bottlenecks run through the fused kernel;
+    ``device_pyramid``, the loader ships one uint8 image and the pyramid
+    is normalised and resized on the device."""
     model = build_anomaly_model(cfg, device, fused_blocks=fused_blocks)
     init_or_load_variables(cfg, model, seed=seed)
 
@@ -48,7 +53,8 @@ def main(cfg, precision_dtype=torch.float32, max_images=None,
         img_sizes=cfg.DATASET.imgSizes,
         img_max_size=cfg.DATASET.imgMaxSize,
         padding_constant=cfg.DATASET.padding_constant,
-        max_sample=max_images or -1)
+        max_sample=max_images or -1,
+        device_pyramid=device_pyramid)
     # background host decode/resample overlapped with device compute
     loader = iter_prefetch(pipeline, depth=2 * max(1, batch_images))
 
@@ -59,7 +65,9 @@ def main(cfg, precision_dtype=torch.float32, max_images=None,
         out_labels=cfg.OOD.out_labels,
         exclude_back=cfg.OOD.exclude_back,
         dtype=precision_dtype,
-        device_metrics=device_metrics)
+        device_metrics=device_metrics,
+        visualize_dir=(os.path.join(cfg.DIR, "result")
+                       if cfg.VAL.visualize else None))
     tic = time.perf_counter()
     if batch_images > 1:
         result = evaluator.evaluate_batched(loader,

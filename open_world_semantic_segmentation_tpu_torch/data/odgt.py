@@ -14,7 +14,8 @@ same as the JAX package's ``data/odgt.py``:
   (``data/native.py``, the default) or PIL;
 - ``ValPipeline``: a per-image pyramid of all ``img_sizes`` resizes (PIL
   bilinear), each rounded up to the padding multiple, plus the untouched
-  label.
+  label; or, with ``device_pyramid``, the one uint8 image for the device
+  to resize; optionally read from a reconstructed tree (``rec_dataset``).
 
 Items are numpy arrays in NHWC; the consumer moves them to the device.
 """
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import numpy as np
 from PIL import Image
@@ -209,27 +210,44 @@ class ValPipeline:
     """Sequential iterator of per-image multi-scale eval items.
 
     Each item holds ``seg_label`` (1, H, W) int32, ``info``, ``name``,
-    ``img_ori`` and ``img_data``, the pyramid: a list of (1, h, w, 3)
-    float32 arrays.
+    ``img_ori`` and either ``img_data``, the pyramid: a list of
+    (1, h, w, 3) float32 arrays, or with ``device_pyramid`` the one uint8
+    image ``img_raw`` (1, H, W, 3) and its ``pyramid_shapes``: the
+    consumer normalises and resizes it on the device
+    (``openset/evaluator.py device_pyramid``, the torch-grid bilinear, not
+    PIL's filter, so scores deviate from the PIL path within resampling
+    tolerance). With ``rec_dataset`` the image is read from that tree,
+    matched by its last folder and file name, and resized to the label's
+    size (nearest), the reference's reconstructed inputs.
     """
 
     def __init__(self, root_dataset: str, odgt, *,
                  img_sizes=(300, 375, 450, 525, 600), img_max_size=1000,
-                 padding_constant=8, max_sample: int = -1):
+                 padding_constant=8, max_sample: int = -1,
+                 rec_dataset: Optional[str] = None,
+                 device_pyramid: bool = False):
         self.root = root_dataset
         self.records = parse_odgt(odgt, max_sample)
         self.img_sizes = tuple(img_sizes)
         self.img_max_size = img_max_size
         self.padding_constant = padding_constant
+        self.rec_dataset = rec_dataset
+        self.device_pyramid = device_pyramid
 
     def __len__(self):
         return len(self.records)
 
     def __getitem__(self, index: int) -> dict:
         rec = self.records[index]
+        if self.rec_dataset:
+            folder, image = rec["fpath_img"].split("/")[-2:]
+            image_path = os.path.join(self.rec_dataset, folder, image)
+        else:
+            image_path = os.path.join(self.root, rec["fpath_img"])
         segm = Image.open(os.path.join(self.root, rec["fpath_segm"]))
-        img = Image.open(os.path.join(self.root, rec["fpath_img"]))
-        img = img.convert("RGB")
+        img = Image.open(image_path).convert("RGB")
+        if self.rec_dataset:
+            img = imresize(img, segm.size, "nearest")
         if segm.mode != "L" or img.size != segm.size:
             raise ValueError(f"{rec['fpath_segm']}: label must be an L-mode "
                              "image of the photo's size")
@@ -238,15 +256,20 @@ class ValPipeline:
         shapes = eval_pyramid_shapes(oh, ow, self.img_sizes,
                                      self.img_max_size,
                                      self.padding_constant)
-        return {
+        out = {
             "seg_label": segm_transform(segm)[None],
             "info": rec["fpath_img"],
             "name": os.path.join(*rec["fpath_img"].split("/")[-2:]),
             "img_ori": np.array(img),
-            "img_data": [
-                img_transform(img.resize((tw, th), Image.BILINEAR))[None]
-                for th, tw in shapes],
         }
+        if self.device_pyramid:
+            out["img_raw"] = out["img_ori"][None]
+            out["pyramid_shapes"] = tuple(shapes)
+            return out
+        out["img_data"] = [
+            img_transform(img.resize((tw, th), Image.BILINEAR))[None]
+            for th, tw in shapes]
+        return out
 
     def __iter__(self):
         for i in range(len(self)):

@@ -1,9 +1,10 @@
 """Encoder/decoder factory with the reference ``ModelBuilder`` arch names,
 plus the combined segmentation model and its random initialisation.
 
-Wired so far: ``resnet50dilated`` + ``ppm_deepsup_embedding``, the
-StreetHazards open-set eval model. Other arch names raise
-``NotImplementedError``; ``ROADMAP.md`` queues them.
+Wired so far: ``resnet50dilated`` with ``ppm_deepsup_embedding`` (the
+StreetHazards open-set eval model) or ``ppm_deepsup`` (the closed-set and
+reconstruction evals). Other arch names raise ``NotImplementedError``;
+``ROADMAP.md`` queues them.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from .decoders import PPMDeepsupEmbedding
+from .decoders import PPMDeepsup, PPMDeepsupEmbedding
 from .layers import BNConfig, init_module
 from .resnet import resnet50
 
@@ -62,9 +63,11 @@ class ModelBuilder:
     def build_decoder(arch="ppm_deepsup_embedding", fc_dim=2048,
                       num_class=13, *, bn: Optional[BNConfig] = None):
         arch = arch.lower()
-        if arch == "ppm_deepsup_embedding":
-            return PPMDeepsupEmbedding(num_class=num_class, fc_dim=fc_dim,
-                                       bn=bn or BNConfig())
+        decoders = {"ppm_deepsup_embedding": PPMDeepsupEmbedding,
+                    "ppm_deepsup": PPMDeepsup}
+        if arch in decoders:
+            return decoders[arch](num_class=num_class, fc_dim=fc_dim,
+                                  bn=bn or BNConfig())
         raise _not_ported("decoder", arch)
 
     @staticmethod

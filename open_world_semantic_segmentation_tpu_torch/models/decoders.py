@@ -1,4 +1,5 @@
-"""The PPM deep-supervision embedding decoder (the DML head), NCHW inside.
+"""The PPM deep-supervision decoders: the embedding one (the DML head) and
+the plain one, NCHW inside.
 
 Parity target: the reference's ``PPMDeepsup_embedding`` (anomaly
 models.py:586-687) as the JAX package's ``models/decoders.py`` computes it:
@@ -15,6 +16,16 @@ models.py:586-687) as the JAX package's ``models/decoders.py`` computes it:
   otherwise materialise it in every train step, which never reads it;
 - dropout is element-wise (``nn.Dropout(0.1)``), as in the JAX package; the
   torch reference drops whole channels (``nn.Dropout2d``).
+
+``PPMDeepsup`` (the reference's PPMDeepsup, models.py:515-584, the model of
+``cli/test_closed.py`` and ``cli/eval_ood_rec.py``) is the same trunk and
+head read as class logits: at inference it returns the raw logits resized
+to ``seg_size`` (no softmax, whatever ``use_softmax`` says in the
+reference) and, when asked (``want_ft=True``, which only
+``cli/eval_ood_rec.py`` sets), ``ft``, the 4096-d PPM concat at feature
+resolution, not resized; in training ``scores`` and ``deepsup``. The JAX
+package returns ``ft`` always and its jit drops it where nothing reads it;
+eager PyTorch would build it at every scale of every eval.
 
 Modules keep the reference's key names (``ppm.0.1.weight``,
 ``conv_last.0.weight``, ``conv_last.4.bias``, ``cbr_deepsup.0.weight``,
@@ -82,16 +93,13 @@ class _PPMHead(nn.Sequential):
         return out(drop(y))
 
 
-class PPMDeepsupEmbedding(nn.Module):
-    """PPMDeepsup trunk whose K-dim conv output is read as a pixel
-    embedding; logits are -||x - m*e_k||^2 against fixed one-hot centers
-    (magnitude 3)."""
+class _PPMDeepsupBase(nn.Module):
+    """The trunk, the head and the deep-supervision branch off conv4 that
+    both decoders share (``_deepsup`` runs the branch)."""
 
-    def __init__(self, num_class: int = 13, fc_dim: int = 4096,
-                 pool_scales=(1, 2, 3, 6), magnitude: float = 3.0,
-                 bn: BNConfig = BNConfig()):
+    def __init__(self, num_class: int, fc_dim: int, pool_scales,
+                 bn: BNConfig):
         super().__init__()
-        self.magnitude = magnitude
         self.ppm = _PPMTrunk(fc_dim, pool_scales, bn)
         self.conv_last = _PPMHead(fc_dim + len(pool_scales) * PPM_CHANNELS,
                                   num_class, bn)
@@ -100,6 +108,42 @@ class PPMDeepsupEmbedding(nn.Module):
                                   bn=bn)
         self.dropout_deepsup = nn.Dropout(0.1)
         self.conv_last_deepsup = Conv(fc_dim // 4, num_class)
+
+    def _deepsup(self, conv4):
+        return _nhwc(self.conv_last_deepsup(self.dropout_deepsup(
+            self.cbr_deepsup(conv4))))
+
+
+class PPMDeepsup(_PPMDeepsupBase):
+    """Raw class logits and, with ``want_ft``, the 4096-d PPM concat as
+    ``ft`` (the features of reconstruction scoring)."""
+
+    def __init__(self, num_class: int = 150, fc_dim: int = 4096,
+                 pool_scales=(1, 2, 3, 6), bn: BNConfig = BNConfig()):
+        super().__init__(num_class, fc_dim, pool_scales, bn)
+
+    def forward(self, conv_out, seg_size=None, want_ft: bool = False):
+        conv5 = conv_out[-1]
+        pools = self.ppm(conv5)
+        x = _nhwc(self.conv_last(conv5, pools))
+        if seg_size is None:
+            return {"scores": x, "deepsup": self._deepsup(conv_out[-2])}
+        out = {"scores": bilinear_resize(x, seg_size)}
+        if want_ft:
+            out["ft"] = _nhwc(_ppm_concat(conv5, pools))
+        return out
+
+
+class PPMDeepsupEmbedding(_PPMDeepsupBase):
+    """PPMDeepsup trunk whose K-dim conv output is read as a pixel
+    embedding; logits are -||x - m*e_k||^2 against fixed one-hot centers
+    (magnitude 3)."""
+
+    def __init__(self, num_class: int = 13, fc_dim: int = 4096,
+                 pool_scales=(1, 2, 3, 6), magnitude: float = 3.0,
+                 bn: BNConfig = BNConfig()):
+        super().__init__(num_class, fc_dim, pool_scales, bn)
+        self.magnitude = magnitude
 
     def forward(self, conv_out, seg_size=None, concat_ft: bool = False):
         conv5 = conv_out[-1]
@@ -111,9 +155,8 @@ class PPMDeepsupEmbedding(nn.Module):
             # materialises on the eval path
             return {"scores": bilinear_resize(scores, seg_size),
                     "ft": bilinear_resize(emb, seg_size)}
-        ds = self.conv_last_deepsup(self.dropout_deepsup(
-            self.cbr_deepsup(conv_out[-2])))
-        out = {"scores": scores, "deepsup": _nhwc(ds), "embedding": emb}
+        out = {"scores": scores, "deepsup": self._deepsup(conv_out[-2]),
+               "embedding": emb}
         if concat_ft:
             out["ft"] = _nhwc(_ppm_concat(conv5, pools))
         return out

@@ -6,13 +6,18 @@ forward, score averaging, anomaly map, argmax and the IoU/accuracy
 histograms run on the device; the conf map goes to the host for the f64
 AUROC/AUPR/FPR95 sweep (``metrics/anom.py``), together with a handful of
 counters. With ``device_metrics`` the sweep runs on the device too
-(``metrics/anom_device.py``) and the conf map stays there.
+(``metrics/anom_device.py``) and the conf map stays there. Items from
+``ValPipeline(device_pyramid=True)`` carry one uint8 image, whose pyramid
+is built on the device (``device_pyramid``). With ``visualize_dir`` each
+image's [image | gt | pred] grid is written there
+(``utils/visualize.py``); the JAX package writes it from its per-image
+path only, the port from both.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,6 +28,7 @@ from ..metrics.anom_device import ood_measures_from_maps
 from ..metrics.meters import AverageMeter
 from ..metrics.segmentation import intersection_and_union_torch
 from ..ops.resize import bilinear_resize
+from ..utils.visualize import save_result_grid
 from .scoring import compute_conf
 
 
@@ -71,7 +77,8 @@ class OODEvaluator:
     def __init__(self, model, *, num_class: int, method: str = "dissum",
                  out_labels: Sequence[int] = (13,),
                  exclude_back: bool = False, dtype=torch.float32,
-                 device_metrics: bool = False):
+                 device_metrics: bool = False,
+                 visualize_dir: Optional[str] = None):
         self.model = model
         self.device = next(model.parameters()).device
         self.num_class = num_class
@@ -80,6 +87,7 @@ class OODEvaluator:
         self.exclude_back = exclude_back
         self.dtype = dtype
         self.device_metrics = device_metrics
+        self.visualize_dir = visualize_dir
 
         self.acc_meter = AverageMeter()
         self.intersection_meter = AverageMeter()
@@ -99,10 +107,15 @@ class OODEvaluator:
         dev = self.device
         seg = torch.from_numpy(
             np.concatenate([it["seg_label"] for it in items])).to(dev)
-        pyramid = [
-            torch.from_numpy(np.concatenate(
-                [it["img_data"][lvl] for it in items])).to(dev)
-            for lvl in range(len(items[0]["img_data"]))]
+        if "img_raw" in items[0]:
+            raw = torch.from_numpy(
+                np.concatenate([it["img_raw"] for it in items])).to(dev)
+            pyramid = device_pyramid(raw, items[0]["pyramid_shapes"])
+        else:
+            pyramid = [
+                torch.from_numpy(np.concatenate(
+                    [it["img_data"][lvl] for it in items])).to(dev)
+                for lvl in range(len(items[0]["img_data"]))]
         seg_size = tuple(seg.shape[1:3])
         with torch.autocast(dev.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):
@@ -127,7 +140,9 @@ class OODEvaluator:
                 out["ood"] = torch.stack(ood_measures_from_maps(
                     conf, label, out_labels=self.out_labels)).float()
             else:
-                out.update(conf=conf.float(), pred=pred)
+                out["conf"] = conf.float()
+            if self.visualize_dir or not self.device_metrics:
+                out["pred"] = pred
             outs.append(out)
         # one device -> host copy per tensor; blocks until the batch is
         # done (the device metrics are read back in _record)
@@ -164,8 +179,11 @@ class OODEvaluator:
         self.acc_meter.update(acc, valid_sum)
         self.intersection_meter.update(out["inter"])
         self.union_meter.update(out["union"])
-        # with device metrics the conf map and the prediction stay on the
-        # device: None here
+        if self.visualize_dir:
+            save_result_grid(item["img_ori"], item["seg_label"][0],
+                             out["pred"], item["info"], self.visualize_dir)
+        # with device metrics the conf map (and the prediction, unless
+        # visualised) stay on the device: None here
         return {"conf": out.get("conf"), "pred": out.get("pred"), "acc": acc,
                 "ood": res}
 
@@ -202,8 +220,12 @@ class OODEvaluator:
         conv algorithms' batch-size-dependent rounding."""
         pending: dict = {}
         for item in self._timed(loader):
-            sig = (tuple(p.shape for p in item["img_data"]),
-                   item["seg_label"].shape)
+            if "img_raw" in item:
+                sig = ("raw", item["img_raw"].shape,
+                       tuple(item["pyramid_shapes"]), item["seg_label"].shape)
+            else:
+                sig = (tuple(p.shape for p in item["img_data"]),
+                       item["seg_label"].shape)
             group = pending.setdefault(sig, [])
             group.append(item)
             if len(group) >= batch_size:

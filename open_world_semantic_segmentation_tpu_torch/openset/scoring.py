@@ -14,7 +14,13 @@ negates (``metrics/anom.py eval_ood_measure``).
 - ``knn``: sum of cosine similarities between each pixel's feature and its
   diagonal-shifted neighbours over a 9x9 window (``ops/knn.py``): the CUDA
   kernel for a CUDA tensor, the plain version for a CPU one.
-- ``crf`` / ``crf-gauss`` are not ported yet.
+- ``crf`` / ``crf-gauss``: mean-field CRF refinement on the device
+  (``openset/crf.py``) of the softmax of the (optionally back-excluded)
+  scores; conf = max_k Q. The softmax and the CRF run in float32 whatever
+  the scores' dtype (the JAX package's CRF takes float32 maps only), and
+  the map is float32.
+- ``rec_cosine_map`` / ``rec_cosine_conf``: reconstruction scoring
+  (``cli/eval_ood_rec.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 
 from ..ops.knn import knn_cosine
 from ..ops.resize import bilinear_resize
+from .crf import bilateral_crf_conf, gaussian_crf_conf
 
 
 def normalize_01(x):
@@ -81,10 +88,33 @@ def knn_cosine_conf(ft, seg_size=None, neighbor_size: int = 9,
     return out
 
 
+def rec_cosine_map(ft_orig, ft_rec, eps: float = 1e-8):
+    """Cosine similarity of the original and the reconstructed feature maps
+    over their trailing channel axis, at feature resolution (the reference
+    normalises both 4096-d maps, then takes ``cosine_similarity(dim=1)``).
+    The caller upsamples it: the reference interpolates the cosine map,
+    not the selected conf."""
+    dot = (ft_orig * ft_rec).sum(dim=-1)
+    n1 = torch.sqrt((ft_orig * ft_orig).sum(dim=-1))
+    n2 = torch.sqrt((ft_rec * ft_rec).sum(dim=-1))
+    return dot / torch.clamp(n1 * n2, min=eps)
+
+
+def rec_cosine_conf(msp, cos, msp_threshold: float = 0.999):
+    """``conf = msp*(msp>t) + cos*(msp<=t)``, both maps at full (label)
+    resolution: the select is made against the full-size MSP."""
+    return torch.where(msp > msp_threshold, msp, cos)
+
+
+SCORING_METHODS = ("msp", "maxlogit", "dissum", "dissum_fused", "background",
+                   "knn", "crf", "crf-gauss")
+
+
 def compute_conf(scores, method: str, *, ft=None, exclude_back: bool = False,
                  seg_size=None):
     """Dispatch on the OOD.ood config value. ``scores``: (H, W, K) averaged
-    multi-scale scores at label resolution; ``ft``: feature map for knn."""
+    multi-scale scores at label resolution; ``ft``: feature map for knn.
+    ``crf`` and ``crf-gauss`` return float32 maps."""
     if method == "msp":
         return msp_conf(scores, exclude_back)
     if method == "maxlogit":
@@ -100,7 +130,11 @@ def compute_conf(scores, method: str, *, ft=None, exclude_back: bool = False,
             raise ValueError("knn scoring needs the feature map")
         return knn_cosine_conf(ft, seg_size=seg_size)
     if method in ("crf", "crf-gauss"):
-        raise NotImplementedError(
-            f"OOD method {method!r} is not ported yet; ROADMAP.md queues "
-            "openset/crf.py")
+        # the reference softmaxes the (optionally back-excluded) scores as
+        # the CRF's unary; for ``crf`` they are also its bilateral "image"
+        probs = torch.softmax(
+            _exclude_back(scores, exclude_back).float(), dim=-1)
+        crf_conf = (gaussian_crf_conf if method == "crf-gauss"
+                    else bilateral_crf_conf)
+        return crf_conf(probs)[0]
     raise ValueError(f"unknown OOD method {method}")

@@ -74,3 +74,8 @@ def bilinear_resize(x: torch.Tensor, size, *, channel_last: bool = True):
     if channel_last:
         x = x.permute(0, 2, 3, 1)
     return x[0] if unbatched else x
+
+
+def resize_like_torch(x: torch.Tensor, size):
+    """NHWC bilinear resize, the JAX package's name for the same call."""
+    return bilinear_resize(x, size, channel_last=True)

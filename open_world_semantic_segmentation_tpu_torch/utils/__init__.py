@@ -1,1 +1,1 @@
-"""Utilities: the metrics stream."""
+"""Utilities: the metrics stream, label colours and result images."""

@@ -15,7 +15,9 @@ the ASPP's dilated convs (``ops/dilated.py``, PyTorch ops, no kernel of
 its own) against cuDNN's conv, forward and backward, channels_last: in
 float32 (TF32 off) within 1e-4 of the largest magnitude (summation
 order), in bf16 within 5e-2 (each tap's product rounded to bf16 before the
-float32 sum, cuDNN's one float32 sum rounded once).
+float32 sum, cuDNN's one float32 sum rounded once). The CRF scoring
+branches (depthwise blurs, PyTorch ops) on cuda against the CPU in float32
+with TF32 off: conf within 1e-4.
 """
 
 import numpy as np
@@ -30,6 +32,7 @@ from open_world_semantic_segmentation_tpu_torch.models.decoders import (
     PPMDeepsupEmbedding)
 from open_world_semantic_segmentation_tpu_torch.models.resnet import (
     Bottleneck, ResNet)
+from open_world_semantic_segmentation_tpu_torch.openset import scoring
 from open_world_semantic_segmentation_tpu_torch.openset.evaluator import (
     multi_scale_forward)
 from open_world_semantic_segmentation_tpu_torch.train.optim import (
@@ -358,3 +361,28 @@ def test_dilated_shift_matches_native_conv(cuda, no_tf32, dtype, rate):
     for got, want in zip(*outs):
         err = float((got - want).abs().max())
         assert err <= tol * float(want.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["crf", "crf-gauss"])
+@pytest.mark.parametrize("exclude_back", [False, True])
+def test_crf_on_cuda_matches_cpu(cuda, no_tf32, method, exclude_back):
+    """The CRF branches of compute_conf (100 mean-field iterations of
+    depthwise blurs, no kernel of the port's own) on cuda against the CPU,
+    float32 with TF32 off, on a 48x80 map of 13 classes: conf within 1e-4
+    (summation order in the blurs), in [0, 1]; bf16 scores are upcast."""
+    scores = torch.from_numpy((np.random.default_rng(3).standard_normal(
+        (48, 80, 13)) * 3).astype(np.float32))
+    want = scoring.compute_conf(scores, method, exclude_back=exclude_back)
+    got = scoring.compute_conf(scores.to(cuda), method,
+                               exclude_back=exclude_back)
+    assert got.dtype == torch.float32 and got.device.type == "cuda"
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-4, err
+    assert 0.0 <= float(got.min()) and float(got.max()) <= 1.0
+    bf16 = scoring.compute_conf(scores.to(cuda).bfloat16(), method,
+                                exclude_back=exclude_back)
+    up = scoring.compute_conf(scores.bfloat16().float().to(cuda), method,
+                              exclude_back=exclude_back)
+    assert bf16.dtype == torch.float32
+    assert torch.equal(bf16, up)

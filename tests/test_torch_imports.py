@@ -12,11 +12,14 @@ import torch
 
 from open_world_semantic_segmentation_tpu_torch.cli import _common
 from open_world_semantic_segmentation_tpu_torch.cli import eval_embedding
+from open_world_semantic_segmentation_tpu_torch.cli import eval_fishyscapes
 from open_world_semantic_segmentation_tpu_torch.cli import eval_ood
+from open_world_semantic_segmentation_tpu_torch.cli import eval_ood_rec
 from open_world_semantic_segmentation_tpu_torch.cli import extract_prototypes
 from open_world_semantic_segmentation_tpu_torch.cli import main_deeplab
 from open_world_semantic_segmentation_tpu_torch.cli import main_distillation
 from open_world_semantic_segmentation_tpu_torch.cli import self_distillation
+from open_world_semantic_segmentation_tpu_torch.cli import test_closed
 from open_world_semantic_segmentation_tpu_torch.cli import test_deeplab
 from open_world_semantic_segmentation_tpu_torch.cli import train_embedding
 from open_world_semantic_segmentation_tpu_torch.core.config import (
@@ -45,7 +48,10 @@ for name in ("cli.train_embedding", "cli.train", "data.native",
              "fewshot", "fewshot.prototypes", "cli.main_deeplab",
              "cli.extract_prototypes", "cli.eval_embedding",
              "cli.test_deeplab", "ops.dilated", "fewshot.self_distillation",
-             "cli.self_distillation", "cli.main_distillation"):
+             "cli.self_distillation", "cli.main_distillation",
+             "openset.crf", "openset.calibration", "openset.fishyscapes",
+             "utils.colors", "utils.visualize", "cli.eval_ood_rec",
+             "cli.test_closed", "cli.eval_fishyscapes"):
     assert port.__name__ + "." + name in names, name
 """
 
@@ -56,7 +62,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(maxsplit=1)
-    assert int(n) >= 56 and bad.strip() == "[]", out.stdout
+    assert int(n) >= 64 and bad.strip() == "[]", out.stdout
 
 
 def test_entry_points_refuse_cuda_without_gpu():
@@ -71,6 +77,10 @@ def test_entry_points_refuse_cuda_without_gpu():
         _common.build_anomaly_model(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         eval_ood.main(cfg)
+    for cli, preset in ((test_closed, "test_test"),
+                        (eval_ood_rec, "test_ood_rec")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(load_config(f"configs/{preset}.yaml"))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -94,6 +104,8 @@ def test_deeplab_entry_points_refuse_cuda_without_gpu():
         extract_prototypes.main(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         eval_embedding.main(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_fishyscapes.main(cfg)
     cfg.DEEPLAB.ckpt = "configs/cityscapes_closed.yaml"  # any file
     with pytest.raises(RuntimeError, match="no CUDA device"):
         test_deeplab.main(cfg)
@@ -113,15 +125,11 @@ def test_deeplab_training_entry_points_refuse_cuda_without_gpu():
 
 
 def test_deeplab_entry_points_raise_for_what_is_not_ported(tmp_path):
-    """The options whose modules wait in ROADMAP.md raise, naming it."""
-    cfg = load_config("configs/cityscapes_embedding.yaml",
-                      ["FEWSHOT.calibrate_scores", "True"])
-    with pytest.raises(NotImplementedError, match="calibration.*ROADMAP"):
-        eval_embedding.main(cfg, device="cpu")
+    """The options whose modules wait in ROADMAP.md raise, naming it.
+    (FEWSHOT.calibrate_scores and DEEPLAB.save_val_results are ported:
+    ``tests/test_torch_calibration.py`` runs them.)"""
     cfg = load_config("configs/cityscapes_closed.yaml",
                       ["DEEPLAB.save_val_results", "True"])
-    with pytest.raises(NotImplementedError, match="visualize.*ROADMAP"):
-        test_deeplab.main(cfg, device="cpu")
     cfg.DEEPLAB.dataset = "voc"
     with pytest.raises(NotImplementedError, match="voc.*ROADMAP"):
         main_deeplab.main(cfg, device="cpu")

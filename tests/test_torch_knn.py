@@ -231,5 +231,11 @@ def test_compute_conf_matches_jax(method, exclude_back):
 
 @pytest.mark.parametrize("method", ["crf", "crf-gauss"])
 def test_compute_conf_unported_methods_raise(method):
-    with pytest.raises(NotImplementedError):
-        scoring.compute_conf(torch.zeros((4, 4, 3)), method)
+    """The CRF methods, once unported, now return a float32 map in [0, 1]
+    (``tests/test_torch_crf.py`` holds them against the JAX package); a
+    method no package knows raises."""
+    conf = scoring.compute_conf(torch.zeros((4, 4, 3)), method)
+    assert conf.dtype == torch.float32 and conf.shape == (4, 4)
+    assert bool(((conf >= 0) & (conf <= 1)).all())
+    with pytest.raises(ValueError, match="unknown OOD method"):
+        scoring.compute_conf(torch.zeros((4, 4, 3)), method + "-x")
