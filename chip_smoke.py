@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU (H100): kernels, the
 StreetHazards open-set eval (PIL and device pyramids, every scoring
-method, visualisation, the closed-set and reconstruction evals), DML
-embedding training, the Cityscapes NPM few-shot eval (with score
-calibration, result PNGs and Fishyscapes Lost&Found), DeepLab training
-and the incremental few-shot fine-tuning (FT / PLM self-distillation,
+method, visualisation, the closed-set and reconstruction evals), the HTTP
+segmentation server and its exported artifact, DML embedding training,
+the Cityscapes NPM few-shot eval (with score calibration, result PNGs and
+Fishyscapes Lost&Found), the live video demo, DeepLab training and the
+incremental few-shot fine-tuning (FT / PLM self-distillation,
 teacher-student distillation), end to end.
 
     python3 chip_smoke.py
@@ -24,11 +25,12 @@ Phases (any failure exits non-zero and prints no result):
    with neighbor_size 11, at the 4096-d PPM concat of 90x160 and at the
    eval's map with neighbor_size 11, constant maps against the counts,
    timed at 90x160x4096; fused_bottleneck at the seven block
-   geometries of resnet50dilated at the largest pyramid level, the six of
-   the DeepLab ResNet-101 (7x7 stem, OS16) at 1024x2048 and at the
-   distillation teacher's batch of 5 crops of 768x768, at ragged small
+   geometries of resnet50dilated at the largest pyramid level and at the
+   server's single 720x1280 input, the six of the DeepLab ResNet-101 (7x7
+   stem, OS16) at 1024x2048 and at the distillation teacher's batch of 5
+   crops of 768x768, at ragged small
    shapes and at batch 2, dilation 8 and Cmid 1024, in bf16 (tolerance
-   5e-2) and float32 with TF32 off (1e-4), timed in bf16 at the three
+   5e-2) and float32 with TF32 off (1e-4), timed in bf16 at the four
    sets of geometries beside the cuDNN chain of the unfused block, with
    its three launches (conv1, conv2, conv3 + skip) also timed apart;
 4. slice phase: a synthetic StreetHazards tree of 720x1280 images, a
@@ -66,6 +68,29 @@ Phases (any failure exits non-zero and prints no result):
    PNGs of 720x1280, values 1..13) and ``cli.eval_ood_rec.main`` in
    float32 on 4 images against a reconstructed tree (the same images with
    seeded noise): imgs/s, peak memory, finite metrics;
+4c. serve phase: ``cli/serve.py``'s HTTP server on 127.0.0.1 (port 0) for
+   the slice phase's model at 720x1280 in bf16, its images as request
+   bodies; the checkpoint's data-dependent start is taken again on the
+   16 served frames, so that dis_sum does not clip everywhere: 8
+   sequential ``/segment`` requests (every second one with
+   ``?scores=dissum``) and a 16-frame ``/stream``; 16 requests from 4
+   client threads with ``max_batch=4`` (after the 1-2-4 warm ladder); 4
+   requests with ``--device-input``; 4 requests and a 4-frame stream with
+   ``fused_blocks=True`` (15 block calls and 45 kernel launches per
+   forward, both counted by the wrapper), then the fused kernel against its
+   plain version on the inputs each routed block gets in a served forward
+   (bf16, 5e-2); a bf16 and an fp32 (TF32 off) artifact exported with the
+   maxlogit conf, the bf16 one served for 4 requests. Every answer is held
+   to a direct forward of the padded batch its image went in: labels equal
+   on 99 % of pixels, conf maps float16, not all NaN, with their NaNs where
+   the direct forward's are and within 2e-3 of its largest magnitude (at
+   least of 1) elsewhere; the fp32 artifact within 1e-3 of the direct
+   forward's largest maxlogit, the served bf16 one within twice the direct
+   bf16 forward's distance from fp32 (plus 1e-3). Printed: /segment ms p50
+   and p99, the micro-batched requests/s, /stream frames/s, the startup and
+   warm-ladder seconds, peak memory, where one request's time goes (decode,
+   dispatch, forward, encode), the same on the fused route and from the
+   artifact;
 5. train phase: a synthetic training tree of 96 720x1280 images;
    ``cli.train_embedding.main`` on cuda in bf16 for 12 steps of the
    full-width model with configs/train_embedding.yaml (batch 8, short
@@ -100,6 +125,11 @@ Phases (any failure exits non-zero and prints no result):
    conv in bf16 channels_last, forward at 1x2048x64x128 and forward plus
    backward at 8x2048x48x48 (within 5e-2 of the largest magnitude), then
    the 1024x2048 forward with each, alternately;
+7a. live demo: ``cli/demo_video.py live_mode`` on 4 ``demo_video`` frames
+   of 1024x2048 with the deeplab phase's checkpoint, unfused and fused (31
+   block calls per frame), after one warm-up frame: frames/s, and the
+   first frame's written blend against one made here from a direct
+   forward (99 % of pixels);
 7b. the rest of the Cityscapes eval, launches zeroed and read around each
    run (none launched): ``cli.eval_embedding.main`` with
    FEWSHOT.calibrate_scores on 4 val images (the GMM/ECDF fit on 4, its
@@ -142,11 +172,13 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -185,6 +217,16 @@ BLOCK_GEOMETRIES = (
     ("layer3.1-5", 71, 125, 1024, 256, 1024, 2, False, 5),
     ("layer4.0", 71, 125, 1024, 512, 2048, 2, True, 1),
     ("layer4.1-2", 71, 125, 2048, 512, 2048, 4, False, 2),
+)
+# the same at the server's single 720x1280 input (cli/serve.py, FULL_SIZE)
+SERVE_BLOCK_GEOMETRIES = (
+    ("layer1.0", 180, 320, 128, 64, 256, 1, True, 1),
+    ("layer1.1-2", 180, 320, 256, 64, 256, 1, False, 2),
+    ("layer2.1-3", 90, 160, 512, 128, 512, 1, False, 3),
+    ("layer3.0", 90, 160, 512, 256, 1024, 1, True, 1),
+    ("layer3.1-5", 90, 160, 1024, 256, 1024, 2, False, 5),
+    ("layer4.0", 90, 160, 1024, 512, 2048, 2, True, 1),
+    ("layer4.1-2", 90, 160, 2048, 512, 2048, 4, False, 2),
 )
 # deeplabv3plus_embedding_resnet101 (7x7 stem, OS16) bottlenecks at the
 # Cityscapes eval's 1024x2048 input, same fields; layer2.0 and layer3.0
@@ -324,6 +366,23 @@ CRF_CROP = (64, 128)            # the bilateral CRF's CPU check
 N_REST_IMAGES = 4               # test_closed and eval_ood_rec
 N_CALIB_IMAGES = 4              # calibration fit and calibrated eval
 N_LAF_IMAGES = 4                # synthetic Lost&Found, 1024x2048
+# the serve phase (cli/serve.py at FULL_SIZE, bf16): 8 sequential
+# requests, a 16-frame stream, 4 clients of 4 requests each at max_batch 4,
+# 4 requests each for --device-input, the fused route (and a 4-frame
+# stream there) and a served artifact; labels held to the direct forward
+# of the same padded batch on 99 % of pixels
+N_SERVE_FRAMES = 16
+N_SERVE_REQUESTS = 8
+N_SERVE_SMALL = 4
+SERVE_MAX_BATCH = 4
+SERVE_CLIENTS = 4
+SERVE_CLIENT_REQUESTS = 4
+SERVE_LABEL_AGREEMENT = 0.99
+# conf maps against the direct forward: 2e-3 of the largest magnitude, at
+# least of 1 (dissum lies in [0, 1])
+SERVE_CONF_TOL = 2e-3
+SERVE_ROUTED_BLOCKS = 15        # resnet50dilated's blocks on the fused route
+N_DEMO_FRAMES = 4               # the live demo, 1024x2048
 SEED = 0
 DEVICE = "cuda"
 
@@ -615,7 +674,7 @@ def fused_kernel_phase():
     tf32 = _tf32_off()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     shapes = ([(1, *g[1:8]) for g in BLOCK_GEOMETRIES
-               + DEEPLAB_BLOCK_GEOMETRIES]
+               + SERVE_BLOCK_GEOMETRIES + DEEPLAB_BLOCK_GEOMETRIES]
               + [(TEACHER_BATCH, *g[1:8]) for g in TEACHER_BLOCK_GEOMETRIES]
               + list(BLOCK_RAGGED))
     max_err = {}
@@ -645,6 +704,8 @@ def fused_kernel_phase():
         DEEPLAB_BLOCK_GEOMETRIES, gen)
     teacher_rows, teacher_totals = time_block_geometries(
         TEACHER_BLOCK_GEOMETRIES, gen, n=TEACHER_BATCH)
+    serve_rows, serve_totals = time_block_geometries(SERVE_BLOCK_GEOMETRIES,
+                                                     gen)
     return {
         "name": "fused_bottleneck",
         "route": "cuda",
@@ -677,6 +738,10 @@ def fused_kernel_phase():
         "distillation_teacher": {**teacher_totals, "launches": None,
                                  "batch": TEACHER_BATCH,
                                  "per_geometry": teacher_rows},
+        # the 15 fused blocks of one served forward at 720x1280; launches
+        # (block calls) and kernel launches from the server's fused run
+        "serve": {**serve_totals, "launches": None,
+                  "per_geometry": serve_rows},
     }
 
 
@@ -804,23 +869,43 @@ def write_random_checkpoint(cfg, root, seed):
                              max_sample=2))
     img = torch.from_numpy(
         np.concatenate([it["img_data"][0] for it in items])).to(DEVICE)
-    seg_size = items[0]["seg_label"].shape[1:3]
+    data_start(model, img, items[0]["seg_label"].shape[1:3],
+               cfg.MODEL.arch_decoder.endswith("embedding"))
+    return save_pair(model, root, "_epoch_0")
+
+
+def data_start(model, img, seg_size, embedding, dtype=None):
+    """BN running statistics from one train-mode forward over ``img`` (a
+    batch of at least 2), then the last 1x1 conv scaled to an embedding
+    std of 0.8, or a logit std of 1 for a plain decoder, in the eval
+    forward under autocast to ``dtype`` where one is given; see
+    ``write_random_checkpoint``."""
+    import torch
+
     for m in model.modules():
         if isinstance(m, torch.nn.BatchNorm2d):
             m.momentum = None          # running stats = this batch's
-    embedding = cfg.MODEL.arch_decoder.endswith("embedding")
     target_std = 0.8 if embedding else 1.0
     with torch.no_grad():
         model.train()(img, seg_size=seg_size)
-        out = model.eval()(img, seg_size=seg_size)
-        std = (out["ft"] if embedding else out["scores"]).std().item()
+        with torch.autocast(img.device.type, dtype=dtype,
+                            enabled=dtype is not None):
+            out = model.eval()(img, seg_size=seg_size)
+        std = (out["ft"] if embedding else out["scores"]).float().std().item()
         head = model.decoder.conv_last[4]
         head.weight.mul_(target_std / std)
         head.bias.mul_(target_std / std)
+
+
+def save_pair(model, root, suffix):
+    """The model as the reference's encoder/decoder .pth pair in ``root``;
+    returns the two paths."""
+    import torch
+
     os.makedirs(root, exist_ok=True)
     paths = []
     for part in ("encoder", "decoder"):
-        path = os.path.join(root, f"{part}_epoch_0.pth")
+        path = os.path.join(root, f"{part}{suffix}.pth")
         torch.save(getattr(model, part).state_dict(), path)
         paths.append(path)
     return paths
@@ -1105,17 +1190,27 @@ def path_kernels():
 def counted(name, run, want=None):
     """``run()`` with every kernel's launch count set to 0 just before and
     read just after; fails unless the counts are ``want`` (a kernel that
-    ``want`` does not name: no launch). Returns ``run``'s result and the
+    ``want`` does not name: no launch). fused_bottleneck counts block
+    calls, and beside them the kernel launches its wrapper enqueued, which
+    must be three per block call; they come back as
+    ``fused_bottleneck_kernels``. Returns ``run``'s result and the
     counts."""
     kernels = path_kernels()
     for fn in kernels.values():
         fn.launches = 0
+    fused = kernels["fused_bottleneck"]
+    fused.kernel_launches = 0
     out = run()
     launches = {k: fn.launches for k, fn in kernels.items()}
+    phases = fused.kernel_launches
     want = {**dict.fromkeys(kernels, 0), **(want or {})}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, want {want}")
-    return out, launches
+    if phases != 3 * launches["fused_bottleneck"]:
+        raise AssertionError(f"{name}: {phases} fused_bottleneck kernel "
+                             f"launches for {launches['fused_bottleneck']} "
+                             "block calls")
+    return out, {**launches, "fused_bottleneck_kernels": phases}
 
 
 def _finite(name, values):
@@ -1464,6 +1559,593 @@ def street_rest_phase(root, cfg, device_metrics_run):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+class _Served:
+    """One served model's HTTP server on 127.0.0.1 (port 0), with every
+    batch its Segmenter dispatches recorded, so that each answer can be
+    held to a direct forward of the same padded batch."""
+
+    def __init__(self, cfg, dtype, **kw):
+        from open_world_semantic_segmentation_tpu_torch.cli import serve
+
+        tic = time.perf_counter()
+        self.server = serve.serve(cfg, dtype, port=0, height=FULL_SIZE[0],
+                                  width=FULL_SIZE[1], device=DEVICE, **kw)
+        self.startup_s = time.perf_counter() - tic
+        self.seg = self.server.segmenter
+        self.batches = []
+        dispatch = self.seg._dispatch
+
+        def spy(arrs, count=True):
+            if count:
+                self.batches.append(list(arrs))
+            return dispatch(arrs, count)
+
+        self.seg._dispatch = spy
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.answers = []       # (image bytes, pred, conf or None)
+
+    def segment(self, data, scores=False):
+        """POST /segment; returns (ms, label map or conf map)."""
+        import urllib.request
+
+        from PIL import Image
+
+        tic = time.perf_counter()
+        req = urllib.request.Request(
+            self.url + ("/segment?scores=dissum" if scores else "/segment"),
+            data=data, method="POST")
+        with urllib.request.urlopen(req) as r:
+            body = r.read()
+        ms = (time.perf_counter() - tic) * 1e3
+        out = (np.load(io.BytesIO(body)) if scores
+               else np.array(Image.open(io.BytesIO(body))))
+        self.answers.append((data, None if scores else out,
+                             out if scores else None))
+        return ms, out
+
+    def stream(self, frames, scores=False):
+        """POST /stream of ``frames``; returns (seconds, results)."""
+        import struct
+        import urllib.request
+
+        from PIL import Image
+
+        body = b"".join(struct.pack(">I", len(f)) + f for f in frames)
+        tic = time.perf_counter()
+        req = urllib.request.Request(
+            self.url + ("/stream?scores=dissum" if scores else "/stream"),
+            data=body + struct.pack(">I", 0), method="POST")
+        with urllib.request.urlopen(req) as r:
+            out = r.read()
+        seconds = time.perf_counter() - tic
+        results, pos = [], 0
+        while pos < len(out):
+            (n,) = struct.unpack(">I", out[pos:pos + 4])
+            payload = io.BytesIO(out[pos + 4:pos + 4 + n])
+            results.append(np.load(payload) if scores
+                           else np.array(Image.open(payload)))
+            pos += 4 + n
+        if len(results) != len(frames):
+            raise AssertionError(f"/stream: {len(results)} results for "
+                                 f"{len(frames)} frames")
+        for f, res in zip(frames, results):
+            self.answers.append((f, None if scores else res,
+                                 res if scores else None))
+        return seconds, results
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join()
+
+    def check(self, name, direct):
+        """Every answer against ``direct(batch)`` (-> per-image labels and
+        conf maps on the host) of the padded batch its image went in:
+        labels equal on SERVE_LABEL_AGREEMENT of pixels; conf maps float16,
+        not all NaN, with their NaNs where the direct forward's are and
+        within SERVE_CONF_TOL of its largest magnitude (at least of 1)
+        elsewhere. A map normalised over the padded batch instead of per
+        image fails the last. Returns the worst label agreement and the
+        largest conf difference."""
+        seg = self.seg
+        cache = {}
+        worst, conf_err = 1.0, 0.0
+        for data, pred, conf in self.answers:
+            arr = seg._decode(data)
+            k, i = next((k, i) for k, arrs in enumerate(self.batches)
+                        for i, a in enumerate(arrs)
+                        if np.array_equal(a, arr))
+            if k not in cache:
+                cache[k] = direct(padded_batch(seg, self.batches[k]))
+            want_pred, want_conf = (t[i] for t in cache[k])
+            if pred is not None:
+                agree = float((pred == want_pred).mean())
+                worst = min(worst, agree)
+                if pred.shape != want_pred.shape or \
+                        agree < SERVE_LABEL_AGREEMENT:
+                    raise AssertionError(f"{name}: served labels agree "
+                                         f"with the direct forward on "
+                                         f"{agree}")
+            if conf is not None:
+                nan = np.isnan(want_conf)
+                if conf.dtype != np.float16 or nan.all() or \
+                        not np.array_equal(np.isnan(conf), nan):
+                    raise AssertionError(
+                        f"{name}: conf map {conf.dtype} with "
+                        f"{int(np.isnan(conf).sum())} NaNs, the direct "
+                        f"forward's {int(nan.sum())} of {nan.size}")
+                want = want_conf[~nan].astype(np.float32)
+                err = float(np.abs(conf[~nan].astype(np.float32)
+                                   - want).max())
+                if not err <= SERVE_CONF_TOL * max(1.0, np.abs(want).max()):
+                    raise AssertionError(f"{name}: conf map {err} from the "
+                                         "direct forward's")
+                conf_err = max(conf_err, err)
+        log(f"serve {name}: {len(self.answers)} answers, {len(cache)} "
+            f"batches; label agreement >= {worst}, conf |diff| <= "
+            f"{conf_err}")
+        return {"answers": len(self.answers), "label_agreement_min": worst,
+                "conf_max_abs_diff": conf_err}
+
+
+def direct_forward(model, dtype, method="dissum", device_input=False):
+    """The served computation, written out: the model on a padded batch
+    (normalised here when it comes as uint8), the argmax and each image's
+    conf map. Returns per-image (labels, conf) on the host."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.data.odgt import (
+        IMAGENET_MEAN, IMAGENET_STD)
+    from open_world_semantic_segmentation_tpu_torch.openset import scoring
+
+    conf_fn = {"dissum": scoring.dissum_conf,
+               "maxlogit": scoring.maxlogit_conf}[method]
+    mean = torch.tensor(IMAGENET_MEAN, device=DEVICE)
+    std = torch.tensor(IMAGENET_STD, device=DEVICE)
+
+    def run(batch):
+        x = torch.from_numpy(batch).to(DEVICE)
+        if device_input:
+            x = (x.float() / 255.0 - mean) / std
+        with torch.inference_mode(), torch.autocast(
+                DEVICE, dtype=dtype, enabled=dtype != torch.float32):
+            scores = model(x, seg_size=FULL_SIZE)["scores"]
+        if method == "maxlogit":          # as the artifact: float32 first
+            scores = scores.float()
+        conf = torch.stack([conf_fn(s) for s in scores])
+        return (scores.argmax(-1).to(torch.uint8).cpu().numpy(),
+                conf.half().cpu().numpy())
+    return run
+
+
+def _latency(ms):
+    return {"n": len(ms), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "mean_ms": float(np.mean(ms)), "all_ms": ms}
+
+
+def serve_phase(root, cfg):
+    """The HTTP server of cli/serve.py at 720x1280 in bf16; see the module
+    note. Returns the summary and the fused run's counts: block calls,
+    kernel launches and forwards."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli import export_model
+    from open_world_semantic_segmentation_tpu_torch.cli._common import (
+        build_anomaly_model, init_or_load_variables)
+    from open_world_semantic_segmentation_tpu_torch.core.export import (
+        load_exported)
+
+    bf16 = torch.bfloat16
+    images = sorted(os.listdir(os.path.join(root, "images/test/t1")),
+                    key=lambda n: int(n.split(".")[0]))
+    frames = []
+    for name in images[:N_SERVE_FRAMES]:
+        with open(os.path.join(root, "images/test/t1", name), "rb") as f:
+            frames.append(f.read())
+    summary = {}
+    cfg, summary["dissum_clipped_share"] = serve_start(root, cfg, frames)
+    model = init_or_load_variables(cfg, build_anomaly_model(cfg, DEVICE))
+    direct = direct_forward(model, bf16)
+
+    # unfused, batch 1: sequential requests, half with ?scores=dissum, then
+    # a stream; peak memory over the server's life
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    served = _Served(cfg, bf16)
+    try:
+        def sequential():
+            return [served.segment(frames[i], scores=i % 2 == 1)[0]
+                    for i in range(N_SERVE_REQUESTS)]
+        ms, _ = counted("serve /segment", sequential)
+        (seconds, _), _ = counted("serve /stream",
+                                  lambda: served.stream(frames))
+        summary["segment"] = _latency(ms)
+        summary["stream"] = {"frames": len(frames), "seconds": seconds,
+                             "frames_per_s": len(frames) / seconds}
+        summary["startup_s"] = served.startup_s
+        summary["metrics"] = served.seg.metrics()
+        summary["layers"] = serve_layers(served.seg, frames[0])
+    finally:
+        served.close()
+    summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    summary["segment"]["check"] = served.check("batch 1", direct)
+
+    # micro-batched: 4 client threads, 4 requests each, max_batch 4
+    served = _Served(cfg, bf16, max_batch=SERVE_MAX_BATCH)
+    try:
+        tic = time.perf_counter()
+        while served.seg.warmed != [1, 2, 4]:
+            time.sleep(0.01)
+        warm_ladder_s = served.startup_s + time.perf_counter() - tic
+        ms = []
+
+        def client(k):
+            for j in range(SERVE_CLIENT_REQUESTS):
+                i = (k * SERVE_CLIENT_REQUESTS + j) % len(frames)
+                ms.append(served.segment(frames[i], scores=j % 2 == 1)[0])
+
+        def concurrent():
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(SERVE_CLIENTS)]
+            tic = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            return time.perf_counter() - tic
+        seconds, _ = counted("serve micro-batched", concurrent)
+        n = SERVE_CLIENTS * SERVE_CLIENT_REQUESTS
+        if len(ms) != n:
+            raise AssertionError(f"micro-batched: {len(ms)} of {n} answered")
+        summary["micro_batched"] = {
+            **_latency(ms), "clients": SERVE_CLIENTS,
+            "max_batch": SERVE_MAX_BATCH, "seconds": seconds,
+            "requests_per_s": n / seconds,
+            "batches": served.seg.metrics()["batches"],
+            "startup_s": served.startup_s,
+            "warm_ladder_s": warm_ladder_s}
+    finally:
+        served.close()
+    summary["micro_batched"]["check"] = served.check("micro-batched", direct)
+
+    # --device-input: uint8 shipped, normalised on the card
+    served = _Served(cfg, bf16, device_input=True)
+    try:
+        ms, _ = counted("serve --device-input", lambda: [
+            served.segment(frames[i], scores=i % 2 == 1)[0]
+            for i in range(N_SERVE_SMALL)])
+        summary["device_input"] = {**_latency(ms),
+                                   "startup_s": served.startup_s}
+    finally:
+        served.close()
+    summary["device_input"]["check"] = served.check(
+        "--device-input", direct_forward(model, bf16, device_input=True))
+
+    # the fused route: 15 block calls per forward, each enqueueing three
+    # kernel launches (counted by the wrapper as it enqueues them)
+    served = _Served(cfg, bf16, fused_blocks=True)
+    routed = sum(m.fused_tile is not None
+                 for m in served.seg.model.modules()
+                 if hasattr(m, "fused_tile"))
+    if routed != SERVE_ROUTED_BLOCKS:
+        raise AssertionError(f"serve fused: {routed} routed blocks, want "
+                             f"{SERVE_ROUTED_BLOCKS}")
+    try:
+        def fused_requests():
+            out = [served.segment(frames[i], scores=i % 2 == 1)[0]
+                   for i in range(N_SERVE_SMALL)]
+            return out, served.stream(frames[:N_SERVE_SMALL])[0]
+        forwards = 2 * N_SERVE_SMALL
+        (ms, stream_s), launches = counted(
+            "serve fused", fused_requests,
+            {"fused_bottleneck": forwards * SERVE_ROUTED_BLOCKS})
+        kernel_launches = launches["fused_bottleneck_kernels"]
+        if kernel_launches != forwards * 3 * SERVE_ROUTED_BLOCKS:
+            raise AssertionError(f"serve fused: {kernel_launches} kernel "
+                                 f"launches in {forwards} forwards")
+        summary["fused"] = {
+            **_latency(ms), "startup_s": served.startup_s,
+            "stream_frames_per_s": N_SERVE_SMALL / stream_s,
+            "layers": serve_layers(served.seg, frames[0]),
+            "routed_blocks": routed, "forwards": forwards,
+            "launches": launches["fused_bottleneck"],
+            "kernel_launches": kernel_launches}
+    finally:
+        served.close()
+    fused_model = served.seg.model
+    summary["fused"]["check"] = served.check(
+        "fused", direct_forward(fused_model, bf16))
+    summary["fused"]["kernel_check"] = serve_fused_kernel_check(
+        fused_model, served.seg._decode(frames[0]))
+    del fused_model, served
+
+    # a bf16 artifact served; the fp32 and bf16 artifacts held to the
+    # direct forward (maxlogit, whose map does not clip)
+    summary["artifact"] = serve_artifact_run(root, cfg, model, frames,
+                                             export_model, load_exported)
+    log("serve phase: " + json.dumps(summary))
+    return summary, {k: summary["fused"][k]
+                     for k in ("launches", "kernel_launches", "forwards")}
+
+
+def serve_start(root, cfg, frames):
+    """The serve phase's weights: the slice phase's checkpoint with its
+    data-dependent start taken again on all the served frames, preprocessed
+    as the server does at FULL_SIZE, the embedding's scale set from the
+    bf16 forward that the server runs. The slice phase's start normalises
+    the two tree images it was taken on; on the other images the random
+    50-layer residual stream grows (embedding std up to 8 on a CPU
+    rehearsal at 64x96), dis_sum clips at 400 on 99-100 % of a served
+    frame's pixels, the min-max normalised map is 0/0 and the conf check
+    would compare NaNs only. Returns a copy of ``cfg`` naming the new .pth
+    pair, and the share of the first frame's pixels whose dis_sum still
+    clips (bf16)."""
+    import copy
+
+    import torch
+
+    from PIL import Image
+
+    from open_world_semantic_segmentation_tpu_torch.cli._common import (
+        build_anomaly_model, init_or_load_variables)
+    from open_world_semantic_segmentation_tpu_torch.data.native import (
+        resize_normalize)
+
+    model = init_or_load_variables(cfg, build_anomaly_model(cfg, DEVICE))
+    img = torch.from_numpy(np.stack([resize_normalize(np.asarray(
+        Image.open(io.BytesIO(f)).convert("RGB")), FULL_SIZE)
+        for f in frames])).to(DEVICE)
+    data_start(model, img, FULL_SIZE, embedding=True, dtype=torch.bfloat16)
+    with torch.inference_mode(), torch.autocast(DEVICE,
+                                                dtype=torch.bfloat16):
+        scores = model(img[:1], seg_size=FULL_SIZE)["scores"]
+    clipped = float((-scores.float().sum(-1) >= 400).float().mean())
+    out = copy.deepcopy(cfg)
+    out.MODEL.weights_encoder, out.MODEL.weights_decoder = save_pair(
+        model, os.path.join(root, "serve_start"), "")
+    log(f"serve: data-dependent start on the served frames; dis_sum "
+        f"clipped on {clipped} of the first frame's pixels")
+    return out, clipped
+
+
+def serve_layers(seg, frame, rounds=5):
+    """Where a /segment request's time goes, layer by layer, on one frame:
+    the PIL decode and resample (host ms), the dispatch (pad, copy up,
+    forward, copy back; host ms until the results are on the host), the
+    forward alone (CUDA events, 10 back to back on a resident batch) and
+    the PNG or npy encode (host ms); medians over ``rounds``."""
+    import torch
+
+    from PIL import Image
+
+    def host_ms(fn):
+        out = []
+        for _ in range(rounds):
+            tic = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - tic) * 1e3)
+        return float(np.median(out))
+
+    arr = seg._decode(frame)
+    pred, conf = seg._run_batch([arr])
+    x = torch.from_numpy(padded_batch(seg, [arr])).to(seg.device)
+
+    def encode_png():
+        Image.fromarray(pred[0], "L").save(io.BytesIO(), format="PNG")
+
+    return {"decode_ms": host_ms(lambda: seg._decode(frame)),
+            "dispatch_ms": host_ms(lambda: seg._run_batch([arr])),
+            "forward_ms": cuda_time_ms(lambda: seg._fwd(x), iters=10),
+            "encode_png_ms": host_ms(encode_png),
+            "encode_npy_ms": host_ms(lambda: np.save(io.BytesIO(), conf[0]))}
+
+
+def padded_batch(seg, arrs):
+    """``arrs`` padded with zeros to the batch size ``seg`` dispatches."""
+    size = next(b for b in seg._batch_sizes if b >= len(arrs))
+    batch = np.zeros((size, *seg.size, 3), arrs[0].dtype)
+    batch[:len(arrs)] = arrs
+    return batch
+
+
+def serve_fused_kernel_check(model, arr):
+    """fused_bottleneck against its plain version on the inputs each
+    routed block gets in a served forward at 720x1280 (bf16, the folded
+    weights the route uses). These launches are outside any count."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
+        fused_bottleneck, fused_bottleneck_plain)
+
+    blocks = {name: m for name, m in model.encoder.named_modules()
+              if getattr(m, "fused_tile", None) is not None}
+    inputs = []
+    hooks = [m.register_forward_pre_hook(
+        lambda _, args, name=name: inputs.append((name, args[0])))
+        for name, m in blocks.items()]
+    x = torch.from_numpy(arr[None]).to(DEVICE)
+    with torch.inference_mode(), torch.autocast(DEVICE,
+                                                dtype=torch.bfloat16):
+        model(x, seg_size=FULL_SIZE)
+    for hook in hooks:
+        hook.remove()
+    tol = BLOCK_TOL["bfloat16"]
+    max_err, shapes = 0.0, {}
+    with torch.inference_mode():
+        for name, xin in inputs:
+            block = blocks[name]
+            ws = block._folded[(torch.bfloat16, xin.device)]
+            xh = xin.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+            d = block.conv2.dilation[0]
+            got = fused_bottleneck(xh, *ws, dilation=d).float()
+            torch.cuda.synchronize()
+            want = fused_bottleneck_plain(xh, *ws, dilation=d).float()
+            err = (got - want).abs()
+            bad = int((err > tol + tol * want.abs()).sum())
+            if bad or not torch.isfinite(got).all():
+                raise AssertionError(f"fused_bottleneck disagrees in the "
+                                     f"served forward at {name}: {bad}")
+            max_err = max(max_err, err.max().item())
+            shapes[name] = list(xh.shape)
+    log(f"serve fused_bottleneck vs plain on the served inputs: max |err| "
+        f"{max_err:.3g} over {len(inputs)} blocks " + json.dumps(shapes))
+    return {"blocks": len(inputs), "max_abs_err": max_err,
+            "shapes": shapes}
+
+
+def serve_artifact_run(root, cfg, model, frames, export_model,
+                       load_exported):
+    """Export the model in bf16 and in fp32 (TF32 off) with the maxlogit
+    conf, serve the bf16 artifact for N_SERVE_SMALL requests, and hold the
+    artifacts to the direct forward: fp32 within DEVICE_CHECK_RTOL of the
+    largest |maxlogit|, bf16 (served) within BF16_ROUTE_FACTOR times the
+    direct bf16 forward's distance from fp32."""
+    import torch
+
+    paths, export_s = {}, {}
+    for name, dtype in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        tf32 = _tf32_off() if dtype == torch.float32 else None
+        tic = time.perf_counter()
+        paths[name] = export_model.main(
+            cfg, dtype, *FULL_SIZE, method="maxlogit",
+            out=os.path.join(root, f"serve_{name}.owss"), device=DEVICE)
+        export_s[name] = time.perf_counter() - tic
+        if tf32 is not None:
+            _tf32_set(tf32)
+    served = _Served(None, torch.bfloat16, artifact=paths["bfloat16"])
+    try:
+        ms, _ = counted("serve artifact", lambda: [
+            served.segment(frames[i], scores=i % 2 == 1)[0]
+            for i in range(N_SERVE_SMALL)])
+    finally:
+        served.close()
+    result = {**_latency(ms), "startup_s": served.startup_s,
+              "export_s": export_s,
+              "bytes": os.path.getsize(paths["bfloat16"]),
+              "check": served.check("artifact", direct_forward(
+                  model, torch.bfloat16, "maxlogit"))}
+
+    # the artifacts' maxlogit maps against the direct forward's, on the
+    # frames the artifact served
+    tf32 = _tf32_off()
+    try:
+        fp32_fn, _ = load_exported(paths["float32"])
+        arrs = [served.seg._decode(f) for f in frames[:N_SERVE_SMALL]]
+        want = [direct_forward(model, torch.float32, "maxlogit")(a[None])[1]
+                for a in arrs]
+        got = [fp32_fn(torch.from_numpy(a[None]).to(DEVICE))[1].cpu()
+               .numpy() for a in arrs]
+    finally:
+        _tf32_set(tf32)
+    bf16_direct = [direct_forward(model, torch.bfloat16, "maxlogit")(
+        a[None])[1] for a in arrs]
+    served_conf = [c for _, _, c in served.answers if c is not None]
+    served_arrs = [served.seg._decode(d) for d, _, c in served.answers
+                   if c is not None]
+
+    def rel(a, b):
+        a, b = np.float64(a), np.float64(b)
+        return float(np.abs(a - b).max() / np.abs(b).max())
+    fp32_err = max(rel(g, w) for g, w in zip(got, want))
+    by_frame = {i: w for i, w in enumerate(want)}
+    served_err = max(rel(c, by_frame[next(i for i, a in enumerate(arrs)
+                                          if np.array_equal(a, sa))][0])
+                     for c, sa in zip(served_conf, served_arrs))
+    direct_err = max(rel(b, w) for b, w in zip(bf16_direct, want))
+    bound = BF16_ROUTE_FACTOR * direct_err + DEVICE_CHECK_RTOL
+    result.update(fp32_max_rel=fp32_err, bf16_served_max_rel=served_err,
+                  bf16_direct_max_rel=direct_err, bf16_bound=bound)
+    log(f"serve artifact: fp32 within {fp32_err:.3g} of the direct "
+        f"forward (bound {DEVICE_CHECK_RTOL}); bf16 served {served_err:.3g}"
+        f" from fp32, direct bf16 {direct_err:.3g} (bound {bound:.3g})")
+    if not fp32_err <= DEVICE_CHECK_RTOL:
+        raise AssertionError(f"fp32 artifact {fp32_err} from the direct "
+                             "forward")
+    if not served_err <= bound:
+        raise AssertionError(f"bf16 artifact {served_err} from fp32, bound "
+                             f"{bound}")
+    return result
+
+
+def demo_phase(root):
+    """The live video demo (cli/demo_video.py live_mode) of the Cityscapes
+    DeepLab embedding model at 1024x2048, unfused and fused, on the deeplab
+    phase's data-started checkpoint; see the module note. Returns the
+    summary and the fused run's launches."""
+    import torch
+
+    from PIL import Image
+
+    from open_world_semantic_segmentation_tpu_torch.cli import demo_video
+    from open_world_semantic_segmentation_tpu_torch.cli.main_deeplab import (
+        build_deeplab_model, init_or_load_deeplab)
+    from open_world_semantic_segmentation_tpu_torch.core.config import (
+        load_config)
+    from open_world_semantic_segmentation_tpu_torch.data.cityscapes import (
+        decode_target)
+    from open_world_semantic_segmentation_tpu_torch.data.odgt import (
+        img_transform)
+
+    tree = os.path.join(root, "cityscapes")
+    write_cityscapes_tree(tree, {"demo_video": N_DEMO_FRAMES},
+                          CITYSCAPES_SIZE, SEED + 5)
+    weights = os.path.join(root, "deeplab_embedding.pth")
+    cfg = load_config("configs/cityscapes_embedding.yaml", [
+        "DATASET.root_dataset", tree, "MODEL.weights_encoder", weights])
+    frames = demo_video._frames(cfg).images
+    summary, launches = {}, 0
+    for fused in (False, True):
+        name = "fused" if fused else "unfused"
+        model, _ = build_deeplab_model(cfg, DEVICE, fused_blocks=fused)
+        init_or_load_deeplab(model, weights)
+        routed = sum(getattr(m, "fused_tile", None) is not None
+                     for m in model.modules())
+        out = os.path.join(root, f"demo_{name}")
+        # the first frame of a process picks cuDNN's algorithms
+        demo_video.live_mode(cfg, out, torch.bfloat16, max_frames=1,
+                             model=model)
+        tic = time.perf_counter()
+        seq_dir, counts = counted(
+            f"demo {name}", lambda: demo_video.live_mode(
+                cfg, out, torch.bfloat16, model=model),
+            {"fused_bottleneck": routed * len(frames)} if fused else {})
+        seconds = time.perf_counter() - tic
+        # the first frame again, forwarded here, blended and compared
+        frame = np.array(Image.open(frames[0]).convert("RGB"))
+        x = torch.from_numpy(img_transform(frame)[None]).to(DEVICE)
+        with torch.inference_mode(), torch.autocast(DEVICE,
+                                                    dtype=torch.bfloat16):
+            pred = model(x)[0].argmax(-1)[0].cpu().numpy()
+        blend = (0.5 * frame + 0.5 * decode_target(pred).astype(np.uint8)
+                 ).astype(np.uint8)
+        written = [np.array(Image.open(os.path.join(
+            seq_dir, os.path.basename(f)))) for f in frames]
+        agree = float((written[0] == blend).all(-1).mean())
+        summary[name] = {"frames": len(frames), "seconds": seconds,
+                         "frames_per_s": len(frames) / seconds,
+                         "routed_blocks": routed,
+                         "launches": counts["fused_bottleneck"],
+                         "blend_agreement": agree}
+        log(f"demo {name}: " + json.dumps(summary[name]))
+        if any(w.shape != (*CITYSCAPES_SIZE, 3) for w in written):
+            raise AssertionError(f"demo {name}: frames of "
+                                 f"{[w.shape for w in written]}")
+        if agree < SERVE_LABEL_AGREEMENT:
+            raise AssertionError(f"demo {name}: the first frame's blend "
+                                 f"agrees with the direct forward on "
+                                 f"{agree}")
+        if fused:
+            launches = counts["fused_bottleneck"]
+        del model
+    return summary, launches
+
+
 def train_phase(root, weights):
     """``cli.train_embedding.main`` on cuda in bf16 at full width with
     configs/train_embedding.yaml as it stands (batch 8, short sides
@@ -2129,7 +2811,7 @@ def deeplab_npm_check(cfg, outputs, labels):
     of the threshold or of the largest base logit (a rounding apart)."""
     import torch
 
-    from open_world_semantic_segmentation_tpu_torch.cli.main_deeplab import (
+    from open_world_semantic_segmentation_tpu_torch.core.device import (
         to_host_async)
     from open_world_semantic_segmentation_tpu_torch.fewshot.prototypes import (
         load_prototypes, npm_label_remap, npm_override)
@@ -2725,11 +3407,13 @@ def main():
         summaries, launches, cfg = slice_phase(root)
         street_rest = street_rest_phase(root, cfg,
                                         summaries["dissum_device_metrics"])
+        serving, serve_launches = serve_phase(root, cfg)
         train = train_phase(root, (cfg.MODEL.weights_encoder,
                                    cfg.MODEL.weights_decoder))
         device_check(cfg)
         train_check = train_step_check()
         deeplab, deeplab_launches = deeplab_phase(root)
+        demo, demo_launches = demo_phase(root)
         cityscapes_rest = cityscapes_rest_phase(root)
         training, (plm_launches, teacher_launches) = deeplab_train_phase(root)
     # launches on the main path: knn_cosine in the knn run, fused_bottleneck
@@ -2738,6 +3422,13 @@ def main():
     set_path_dtype(kernels[0], summaries.pop("knn_input_dtype"))
     kernels[1]["launches"] = launches["dissum_fused"]["fused_bottleneck"]
     kernels[1]["deeplab"]["launches"] = deeplab_launches
+    kernels[1]["deeplab"]["demo_launches"] = demo_launches
+    # the server's fused run: block calls and the kernel launches they
+    # enqueued, both counted, and the kernel against its plain version on
+    # the served forward's inputs
+    kernels[1]["serve"].update(
+        **serve_launches,
+        max_abs_err=serving["fused"]["kernel_check"]["max_abs_err"])
     kernels[1]["deeplab"]["plm_eval_launches"] = plm_launches
     kernels[1]["distillation_teacher"]["launches"] = teacher_launches
     log(f"gpu: {gpu}; eval summaries: " + json.dumps(summaries))
@@ -2749,7 +3440,9 @@ def main():
         + json.dumps(train_check))
     log(f"gpu: {gpu}; the rest of the StreetHazards eval: "
         + json.dumps(street_rest))
+    log(f"gpu: {gpu}; serve: " + json.dumps(serving))
     log(f"gpu: {gpu}; deeplab: " + json.dumps(deeplab))
+    log(f"gpu: {gpu}; live demo: " + json.dumps(demo))
     log(f"gpu: {gpu}; the rest of the Cityscapes eval: "
         + json.dumps(cityscapes_rest))
     log(f"gpu: {gpu}; deeplab training: " + json.dumps(training))

@@ -11,3 +11,5 @@ Entry points run on ``cuda`` unless the caller asks for the CPU
 falling back. Hand-written CUDA kernels live in ``csrc/`` and are built with
 ``nvcc`` at first use (``ops/_build.py``).
 """
+
+__version__ = "0.1.0"   # the JAX package's: artifacts stamp it

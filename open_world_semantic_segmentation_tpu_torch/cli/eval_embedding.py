@@ -31,8 +31,8 @@ import torch
 
 from ._common import compute_dtype, config_parser, parse_config
 from .main_deeplab import (autocast, build_deeplab_model, double_buffered,
-                           get_transforms, init_or_load_deeplab,
-                           to_host_async)
+                           get_transforms, init_or_load_deeplab)
+from ..core.device import to_host_async
 from ..data.cityscapes import Cityscapes
 from ..data.loader import batch_iterator
 from ..data.prefetch import prefetch_to_device

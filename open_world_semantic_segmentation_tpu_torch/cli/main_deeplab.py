@@ -177,26 +177,6 @@ def autocast(device: torch.device, dtype):
                           enabled=dtype != torch.float32)
 
 
-def to_host_async(tensors):
-    """Start copying ``tensors`` to the host; returns a function that
-    waits for the copies and returns numpy arrays. On CUDA the copies go
-    to pinned memory behind the work already queued, so waiting for them
-    does not wait for work queued later."""
-    if tensors[0].device.type != "cuda":
-        return lambda: [t.numpy() for t in tensors]
-    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            for t in tensors]
-    for h, t in zip(host, tensors):
-        h.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-
-    def wait():
-        done.synchronize()
-        return [h.numpy() for h in host]
-    return wait
-
-
 def double_buffered(batches, dispatch, resolve, max_images=None):
     """The eval loop: ``dispatch(batch)`` queues one batch on the device
     and returns ``(n_images, wait_fn, context)``, ``wait_fn`` as

@@ -47,9 +47,8 @@ import torch
 from ._common import compute_dtype, config_parser, parse_config
 from .main_deeplab import (autocast, build_deeplab_model, double_buffered,
                            frozen_heads, get_train_dataset, get_transforms,
-                           init_or_load_deeplab, to_host_async, train_batches,
-                           train_loop)
-from ..core.device import resolve_device
+                           init_or_load_deeplab, train_batches, train_loop)
+from ..core.device import resolve_device, to_host_async
 from ..data.cityscapes import Cityscapes
 from ..data.loader import batch_iterator
 from ..data.prefetch import prefetch_to_device

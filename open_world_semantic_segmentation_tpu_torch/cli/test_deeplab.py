@@ -26,7 +26,8 @@ from PIL import Image
 from ._common import compute_dtype, config_parser, parse_config
 from .main_deeplab import (autocast, build_deeplab_model, double_buffered,
                            get_transforms, get_val_dataset,
-                           init_or_load_deeplab, to_host_async)
+                           init_or_load_deeplab)
+from ..core.device import to_host_async
 from ..data.loader import batch_iterator
 from ..data.prefetch import iter_prefetch
 from ..metrics.anom import get_measures

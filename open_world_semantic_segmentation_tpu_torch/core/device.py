@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the asynchronous
+copy of results to the host."""
 
 from __future__ import annotations
 
@@ -13,3 +14,23 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass "
                            "--device cpu (device='cpu') to run on the CPU")
     return device
+
+
+def to_host_async(tensors):
+    """Start copying ``tensors`` to the host; returns a function that
+    waits for the copies and returns numpy arrays. On CUDA the copies go
+    to pinned memory behind the work already queued, so waiting for them
+    does not wait for work queued later."""
+    if tensors[0].device.type != "cuda":
+        return lambda: [t.numpy() for t in tensors]
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait():
+        done.synchronize()
+        return [h.numpy() for h in host]
+    return wait

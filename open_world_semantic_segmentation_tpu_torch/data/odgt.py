@@ -54,6 +54,18 @@ def img_transform(img: Image.Image) -> np.ndarray:
     return (arr - IMAGENET_MEAN) / IMAGENET_STD
 
 
+def device_normalize(imgs):
+    """uint8 NHWC on the device -> ImageNet-normalised float32, on the
+    same device. The one definition of the device-side normalisation of
+    the server's ``--device-input`` and the evaluator's device pyramid;
+    bit for bit ``img_transform`` for uint8 input."""
+    import torch
+
+    mean = torch.from_numpy(IMAGENET_MEAN).to(imgs.device)
+    std = torch.from_numpy(IMAGENET_STD).to(imgs.device)
+    return (imgs.float() / 255.0 - mean) / std
+
+
 def segm_transform(segm) -> np.ndarray:
     """label png -> int32 HW, values shifted to -1..C-1."""
     return np.array(segm, dtype=np.int32) - 1

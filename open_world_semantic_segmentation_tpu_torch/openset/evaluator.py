@@ -22,7 +22,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..data.odgt import IMAGENET_MEAN, IMAGENET_STD
+from ..data.odgt import device_normalize
 from ..metrics.anom import eval_ood_measure
 from ..metrics.anom_device import ood_measures_from_maps
 from ..metrics.meters import AverageMeter
@@ -57,9 +57,7 @@ def device_pyramid(img_raw: torch.Tensor, shapes):
     normalise with the ImageNet stats, then resize to each shape with the
     torch-grid bilinear. Scores deviate from the PIL host path within
     resampling tolerance."""
-    mean = torch.from_numpy(IMAGENET_MEAN).to(img_raw.device)
-    std = torch.from_numpy(IMAGENET_STD).to(img_raw.device)
-    x = (img_raw.float() / 255.0 - mean) / std
+    x = device_normalize(img_raw)
     return [bilinear_resize(x, s) for s in shapes]
 
 

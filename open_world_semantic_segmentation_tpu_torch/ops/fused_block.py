@@ -31,7 +31,9 @@ image times ``bn`` output channels.
 - ``fused_bottleneck_plain``: plain PyTorch, the JAX kernel's rounding.
 - ``fused_bottleneck``: the wrapper. A CPU tensor goes to the plain
   version; a CUDA tensor goes to the kernel or raises.
-  ``fused_bottleneck.launches`` counts block calls that reach the kernel.
+  ``fused_bottleneck.launches`` counts block calls that reach the kernel,
+  ``fused_bottleneck.kernel_launches`` the kernel launches they enqueue
+  (one per phase, three per block call).
 
 The JAX kernel's padded width and slack columns are TPU tiling artefacts
 and have no counterpart here: the width is the image's.
@@ -287,10 +289,13 @@ def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, *,
                                    dilation)
     # ``held`` is freed on return, after the launches are enqueued on the
     # stream it was allocated on, so only later work there can reuse it
-    _launch(fn, args, out.device, 7,
-            torch.cuda.current_stream(out.device).cuda_stream)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    for phase in (1, 2, 4):            # conv1, conv2, conv3 + skip
+        _launch(fn, args, out.device, phase, stream)
+        fused_bottleneck.kernel_launches += 1
     fused_bottleneck.launches += 1
     return out
 
 
 fused_bottleneck.launches = 0
+fused_bottleneck.kernel_launches = 0

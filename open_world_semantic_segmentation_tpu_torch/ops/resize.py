@@ -59,7 +59,9 @@ def bilinear_resize(x: torch.Tensor, size, *, channel_last: bool = True):
     """Resize ``x`` (NHWC or HWC if channel_last, else NCHW/CHW) to ``size``.
 
     ``size`` is (H_out, W_out). Returns the input's layout and dtype, as
-    the JAX package does, also where autocast runs the op in float32.
+    the JAX package does. The interpolation runs in float32 at least, as
+    CUDA autocast runs it, whether autocast is on or not: a program traced
+    by ``torch.export`` replays the dtypes it saw.
     """
     h_out, w_out = int(size[0]), int(size[1])
     dtype = x.dtype
@@ -69,7 +71,8 @@ def bilinear_resize(x: torch.Tensor, size, *, channel_last: bool = True):
     if channel_last:
         x = x.permute(0, 3, 1, 2)
     if tuple(x.shape[-2:]) != (h_out, w_out):
-        x = F.interpolate(x, size=(h_out, w_out), mode="bilinear",
+        wide = torch.promote_types(dtype, torch.float32)
+        x = F.interpolate(x.to(wide), size=(h_out, w_out), mode="bilinear",
                           align_corners=False).to(dtype)
     if channel_last:
         x = x.permute(0, 2, 3, 1)

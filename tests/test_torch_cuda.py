@@ -17,7 +17,12 @@ float32 (TF32 off) within 1e-4 of the largest magnitude (summation
 order), in bf16 within 5e-2 (each tap's product rounded to bf16 before the
 float32 sum, cuDNN's one float32 sum rounded once). The CRF scoring
 branches (depthwise blurs, PyTorch ops) on cuda against the CPU in float32
-with TF32 off: conf within 1e-4.
+with TF32 off: conf within 1e-4. The server (``cli/serve.py``) on cuda,
+unfused and on the fused route, and an exported artifact against the
+direct forward of the same model at the same batch size, fp32 with TF32
+off: labels equal on 99 % of pixels, float16 conf maps within 2e-3 of
+their largest magnitude (at least of 1) with their NaNs in the same
+places.
 """
 
 import numpy as np
@@ -209,10 +214,11 @@ def test_fused_kernel_matches_plain(cuda, no_tf32, dtype, shape):
     x, ws = _block_inputs(n, h, w, cin, cmid, cout, d, down)
     x = x.to(cuda, dtype)
     ws = [None if t is None else t.to(cuda) for t in ws]
-    before = fused_bottleneck.launches
+    before = fused_bottleneck.launches, fused_bottleneck.kernel_launches
     got = fused_bottleneck(x, *ws, dilation=d)
     torch.cuda.synchronize()
-    assert fused_bottleneck.launches == before + 1
+    assert (fused_bottleneck.launches, fused_bottleneck.kernel_launches) \
+        == (before[0] + 1, before[1] + 3)   # one block call, three phases
     assert got.dtype == dtype and got.shape == (n, h, w, cout)
     assert torch.isfinite(got).all()
     want = fused_bottleneck_plain(x, *ws, dilation=d)
@@ -227,7 +233,7 @@ def test_fused_kernel_rejects_what_it_cannot_take(cuda):
     x, ws = _block_inputs(1, 8, 8, 32, 16, 32, 1, False)
     x = x.to(cuda)
     ws = [None if t is None else t.to(cuda) for t in ws]
-    before = fused_bottleneck.launches
+    before = fused_bottleneck.launches, fused_bottleneck.kernel_launches
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fused_bottleneck(x.half(), *ws)
     with pytest.raises(ValueError, match="contiguous"):
@@ -240,7 +246,8 @@ def test_fused_kernel_rejects_what_it_cannot_take(cuda):
                          *[None if t is None else t.to(cuda) for t in wo])
     with pytest.raises(RuntimeError, match="lies on cpu"):
         fused_bottleneck(x, ws[0].cpu(), *ws[1:])
-    assert fused_bottleneck.launches == before
+    assert (fused_bottleneck.launches,
+            fused_bottleneck.kernel_launches) == before
 
 
 @pytest.mark.cuda
@@ -386,3 +393,183 @@ def test_crf_on_cuda_matches_cpu(cuda, no_tf32, method, exclude_back):
                               exclude_back=exclude_back)
     assert bf16.dtype == torch.float32
     assert torch.equal(bf16, up)
+
+
+# -- the server (cli/serve.py) and its artifacts on the card ---------------
+SERVE_SIZE = (64, 96)
+
+
+def _started_serve_weights(root, device):
+    """The eval model's seeded weights with a data-dependent start (BN
+    statistics from a batch of the served kind of image, the embedding
+    scaled to std 0.8) as the reference's .pth pair."""
+    from open_world_semantic_segmentation_tpu_torch.cli._common import (
+        build_anomaly_model)
+    from open_world_semantic_segmentation_tpu_torch.core.config import (
+        load_config)
+    from open_world_semantic_segmentation_tpu_torch.data.native import (
+        resize_normalize)
+
+    cfg = load_config("configs/test_ood_street.yaml")
+    with torch.random.fork_rng(devices=[device]):
+        torch.manual_seed(0)
+        model = build_anomaly_model(cfg, device)
+    x = torch.from_numpy(np.stack([resize_normalize(
+        _serve_image(i), SERVE_SIZE) for i in range(8)])).to(device)
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = None
+    with torch.no_grad():
+        model.train()(x, seg_size=SERVE_SIZE)
+        std = model.eval()(x, seg_size=SERVE_SIZE)["ft"].std().item()
+        head = model.decoder.conv_last[4]
+        head.weight.mul_(0.8 / std)
+        head.bias.mul_(0.8 / std)
+    paths = [str(root / f"{part}.pth") for part in ("encoder", "decoder")]
+    torch.save(model.encoder.state_dict(), paths[0])
+    torch.save(model.decoder.state_dict(), paths[1])
+    return load_config("configs/test_ood_street.yaml", [
+        "MODEL.weights_encoder", paths[0],
+        "MODEL.weights_decoder", paths[1]])
+
+
+def _serve_image(seed):
+    return np.random.default_rng(seed).integers(0, 255, (80, 120, 3),
+                                                dtype=np.uint8)
+
+
+def _png(arr):
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _direct_served(model, arrs, conf_fn=scoring.dissum_conf):
+    """The served computation on a batch, in fp32: labels and per-image
+    conf maps (dissum) as float16."""
+    x = torch.from_numpy(np.stack(arrs)).to("cuda")
+    with torch.inference_mode():
+        scores = model(x, seg_size=SERVE_SIZE)["scores"]
+        conf = torch.stack([conf_fn(s) for s in scores])
+    return (scores.argmax(-1).to(torch.uint8).cpu().numpy(),
+            conf.half().cpu().numpy())
+
+
+def _assert_served(pred, conf, want_pred, want_conf):
+    if pred is not None:
+        assert pred.dtype == np.uint8 and (pred == want_pred).mean() >= 0.99
+    assert conf.dtype == np.float16
+    nan = np.isnan(want_conf)
+    np.testing.assert_array_equal(np.isnan(conf), nan)
+    assert not nan.all()
+    want = want_conf[~nan].astype(np.float32)
+    # 2e-3 of the largest magnitude, at least of 1 (dissum lies in [0, 1])
+    np.testing.assert_allclose(conf[~nan].astype(np.float32), want,
+                               atol=2e-3 * max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_server_on_cuda_matches_direct_forward(cuda, no_tf32, tmp_path,
+                                               fused):
+    """/segment (labels and ?scores=dissum) and /stream of the server on
+    cuda, fp32 with TF32 off, against the direct forward of its model at
+    the same batch size; the fused route launches its kernel."""
+    import io
+    import struct
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from open_world_semantic_segmentation_tpu_torch.cli import serve
+
+    cfg = _started_serve_weights(tmp_path, cuda)
+    fused_bottleneck.launches = fused_bottleneck.kernel_launches = 0
+    srv = serve.serve(cfg, torch.float32, port=0, height=SERVE_SIZE[0],
+                      width=SERVE_SIZE[1], fused_blocks=fused)
+    seg = srv.segmenter
+    assert seg.device.type == "cuda"
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        frames = [_serve_image(10 + i) for i in range(3)]
+        for arr in frames:
+            want = _direct_served(seg.model, [seg._decode(_png(arr))])
+            got = []
+            for q in ("", "?scores=dissum"):
+                req = urllib.request.Request(url + "/segment" + q,
+                                             data=_png(arr), method="POST")
+                with urllib.request.urlopen(req) as r:
+                    body = io.BytesIO(r.read())
+                got.append(np.load(body) if q else np.array(
+                    Image.open(body)))
+            _assert_served(got[0], got[1], want[0][0], want[1][0])
+        body = b"".join(struct.pack(">I", len(_png(a))) + _png(a)
+                        for a in frames) + struct.pack(">I", 0)
+        req = urllib.request.Request(url + "/stream?scores=dissum",
+                                     data=body, method="POST")
+        with urllib.request.urlopen(req) as r:
+            out = r.read()
+        pos, confs = 0, []
+        while pos < len(out):
+            (n,) = struct.unpack(">I", out[pos:pos + 4])
+            confs.append(np.load(io.BytesIO(out[pos + 4:pos + 4 + n])))
+            pos += 4 + n
+        assert len(confs) == 3
+        for arr, conf in zip(frames, confs):
+            want = _direct_served(seg.model, [seg._decode(_png(arr))])
+            _assert_served(None, conf, None, want[1][0])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    routed = sum(getattr(m, "fused_tile", None) is not None
+                 for m in seg.model.modules())
+    assert routed == (15 if fused else 0)
+    assert fused_bottleneck.launches >= routed * 9    # 9 served forwards
+    assert fused_bottleneck.kernel_launches == 3 * fused_bottleneck.launches
+
+
+@pytest.mark.cuda
+def test_artifact_loads_and_runs_on_cuda(cuda, no_tf32, tmp_path):
+    """An fp32 artifact exported on cuda (the maxlogit conf): its
+    metadata names cuda, it loads there, answers what the direct forward
+    does, and ``cli/artifacts.py check`` reads it."""
+    from open_world_semantic_segmentation_tpu_torch.cli import (
+        artifacts, export_model)
+    from open_world_semantic_segmentation_tpu_torch.cli._common import (
+        build_anomaly_model, init_or_load_variables)
+    from open_world_semantic_segmentation_tpu_torch.core.export import (
+        load_exported)
+    from open_world_semantic_segmentation_tpu_torch.data.native import (
+        resize_normalize)
+
+    cfg = _started_serve_weights(tmp_path, cuda)
+    path = export_model.main(cfg, torch.float32, *SERVE_SIZE, batch=2,
+                             method="maxlogit", out=str(tmp_path / "m.owss"))
+    fn, meta = load_exported(path)
+    assert meta["platforms"] == ["cuda"]
+    model = init_or_load_variables(cfg, build_anomaly_model(cfg))
+    arrs = [resize_normalize(_serve_image(20 + i), SERVE_SIZE)
+            for i in range(2)]
+    pred, conf = (t.cpu().numpy() for t in fn(
+        torch.from_numpy(np.stack(arrs)).to("cuda")))
+    want_pred, want_conf = _direct_served(model, arrs,
+                                          scoring.maxlogit_conf)
+    for i in range(2):
+        _assert_served(pred[i], conf[i], want_pred[i], want_conf[i])
+    # ``check`` without ``--run``: on a zero image these weights' maxlogit
+    # overflows float16, so the labels-only artifact below takes the run
+    report = artifacts.check_artifact(path)
+    assert report["runs_here"] and report["valid"], report["problems"]
+    assert report["in_avals"] == ["float32[2, 64, 96, 3]"]
+    labels = export_model.main(cfg, torch.float32, *SERVE_SIZE, batch=2,
+                               method="none",
+                               out=str(tmp_path / "labels.owss"))
+    report = artifacts.check_artifact(labels, run=True)
+    assert report["ran_on_zeros"] and report["valid"], report["problems"]
+    assert report["out_avals"] == ["uint8[2, 64, 96]"]

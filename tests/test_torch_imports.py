@@ -11,14 +11,17 @@ import pytest
 import torch
 
 from open_world_semantic_segmentation_tpu_torch.cli import _common
+from open_world_semantic_segmentation_tpu_torch.cli import demo_video
 from open_world_semantic_segmentation_tpu_torch.cli import eval_embedding
 from open_world_semantic_segmentation_tpu_torch.cli import eval_fishyscapes
 from open_world_semantic_segmentation_tpu_torch.cli import eval_ood
 from open_world_semantic_segmentation_tpu_torch.cli import eval_ood_rec
+from open_world_semantic_segmentation_tpu_torch.cli import export_model
 from open_world_semantic_segmentation_tpu_torch.cli import extract_prototypes
 from open_world_semantic_segmentation_tpu_torch.cli import main_deeplab
 from open_world_semantic_segmentation_tpu_torch.cli import main_distillation
 from open_world_semantic_segmentation_tpu_torch.cli import self_distillation
+from open_world_semantic_segmentation_tpu_torch.cli import serve
 from open_world_semantic_segmentation_tpu_torch.cli import test_closed
 from open_world_semantic_segmentation_tpu_torch.cli import test_deeplab
 from open_world_semantic_segmentation_tpu_torch.cli import train_embedding
@@ -51,7 +54,9 @@ for name in ("cli.train_embedding", "cli.train", "data.native",
              "cli.self_distillation", "cli.main_distillation",
              "openset.crf", "openset.calibration", "openset.fishyscapes",
              "utils.colors", "utils.visualize", "cli.eval_ood_rec",
-             "cli.test_closed", "cli.eval_fishyscapes"):
+             "cli.test_closed", "cli.eval_fishyscapes", "cli.serve",
+             "cli.export_model", "cli.artifacts", "cli.demo_video",
+             "cli.make_odgt", "cli.pick_images", "core.export"):
     assert port.__name__ + "." + name in names, name
 """
 
@@ -62,7 +67,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(maxsplit=1)
-    assert int(n) >= 64 and bad.strip() == "[]", out.stdout
+    assert int(n) >= 71 and bad.strip() == "[]", out.stdout
 
 
 def test_entry_points_refuse_cuda_without_gpu():
@@ -137,3 +142,16 @@ def test_deeplab_entry_points_raise_for_what_is_not_ported(tmp_path):
     cfg.DEEPLAB.model = "deeplabv3plus_mobilenet"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main_deeplab.build_model(cfg)
+
+
+def test_serving_entry_points_refuse_cuda_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: CUDA is a valid choice here")
+    cfg = load_config("configs/test_ood_street.yaml")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.Segmenter(cfg, torch.float32, 32, 48)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export_model.main(cfg, out=str(tmp_path / "m.owss"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        demo_video.live_mode(load_config("configs/cityscapes_embedding.yaml"),
+                             str(tmp_path / "demo"), torch.float32)
