@@ -41,18 +41,21 @@ def compute_dtype(args):
 
 
 def build_anomaly_model(cfg: Config, device=None, fused_blocks: bool = False,
-                        train: bool = False):
+                        train: bool = False, use_softmax: bool = False):
     """The config's encoder + decoder on ``device`` (channels last on CUDA,
     the layout cuDNN's convs prefer), in training mode if ``train`` else in
     eval mode. ``fused_blocks`` routes the backbone's eligible bottlenecks
-    through the fused kernel (eval mode only)."""
+    through the fused kernel (eval mode only). ``use_softmax``: the
+    decoders that take it (C1, C1DeepSup, PPM, UPerNet) return softmax
+    probabilities at inference; the inference CLIs ask for it, as the
+    JAX package's do, so a multi-scale eval averages probabilities."""
     from ..models.builder import ModelBuilder
 
     device = resolve_device(device)
     model = ModelBuilder.build_segmentation_model(
         cfg.MODEL.arch_encoder, cfg.MODEL.arch_decoder,
         num_class=cfg.DATASET.num_class, fc_dim=cfg.MODEL.fc_dim,
-        fused_blocks=fused_blocks)
+        use_softmax=use_softmax, fused_blocks=fused_blocks)
     model = model.train(train).to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)

@@ -45,7 +45,8 @@ def main(cfg, precision_dtype=torch.float32, max_images=None,
     backbone's eligible bottlenecks run through the fused kernel;
     ``device_pyramid``, the loader ships one uint8 image and the pyramid
     is normalised and resized on the device."""
-    model = build_anomaly_model(cfg, device, fused_blocks=fused_blocks)
+    model = build_anomaly_model(cfg, device, fused_blocks=fused_blocks,
+                                use_softmax=True)
     init_or_load_variables(cfg, model, seed=seed)
 
     pipeline = ValPipeline(

@@ -71,7 +71,7 @@ def main(cfg, precision_dtype=torch.float32, max_images=None, device=None):
     holds both in- and out-pixels), ``mean_iou``, ``accuracy``, ``images``,
     ``inference_time`` (device s/img) and ``seconds``, the loop's wall
     time."""
-    model = build_anomaly_model(cfg, device)
+    model = build_anomaly_model(cfg, device, use_softmax=True)
     init_or_load_variables(cfg, model)
     dev = next(model.parameters()).device
     common = dict(img_sizes=cfg.DATASET.imgSizes,

@@ -72,7 +72,7 @@ def main(cfg, precision_dtype=torch.bfloat16, height=720, width=1280,
     if npm:
         return _export_npm(cfg, precision_dtype, height, width, batch,
                            device, out)
-    model = build_anomaly_model(cfg, device)
+    model = build_anomaly_model(cfg, device, use_softmax=True)
     init_or_load_variables(cfg, model)
     if pyramid:
         from ..data.odgt import eval_pyramid_shapes

@@ -65,6 +65,10 @@ MODEL_MAP = {
         deeplab_models.deeplabv3plus_embedding_resnet50,
     "deeplabv3plus_embedding_self_distillation_resnet101":
         deeplab_models.deeplabv3plus_embedding_self_distillation_resnet101,
+    "deeplabv3plus_mobilenet": deeplab_models.deeplabv3plus_mobilenet,
+    "deeplabv3_mobilenet": deeplab_models.deeplabv3_mobilenet,
+    "deeplabv3plus_embedding_mobilenet":
+        deeplab_models.deeplabv3plus_embedding_mobilenet,
 }
 
 
@@ -123,7 +127,8 @@ def build_model(cfg, *, fused_blocks: bool = False,
     self-distillation model adds FEWSHOT.novel_cls heads."""
     d = cfg.DEEPLAB
     if d.model not in MODEL_MAP:
-        raise _not_ported(f"DEEPLAB.model {d.model!r}")
+        raise ValueError(f"DEEPLAB.model {d.model!r}: one of "
+                         f"{sorted(MODEL_MAP)}")
     num_classes = d.num_classes or (16 if "embedding" in d.model else 19)
     extra = ({"cls_novel": cfg.FEWSHOT.novel_cls}
              if "self_distillation" in d.model else {})

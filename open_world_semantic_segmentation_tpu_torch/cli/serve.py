@@ -166,7 +166,8 @@ class Segmenter:
             self.device = resolve_device(device)
             self.size = (height, width)
             self.model = build_anomaly_model(cfg, self.device,
-                                             fused_blocks=fused_blocks)
+                                             fused_blocks=fused_blocks,
+                                             use_softmax=True)
             init_or_load_variables(cfg, self.model)
             self.model_name = (f"{cfg.MODEL.arch_encoder}+"
                                f"{cfg.MODEL.arch_decoder}")

@@ -37,7 +37,7 @@ from ..openset.evaluator import OODEvaluator
 def main(cfg, precision_dtype=torch.float32, max_images=None, device=None):
     """Evaluate and return the evaluator's summary, with ``seconds``: the
     loop's wall time, PNG writing included."""
-    model = build_anomaly_model(cfg, device)
+    model = build_anomaly_model(cfg, device, use_softmax=True)
     init_or_load_variables(cfg, model)
     pipeline = ValPipeline(
         cfg.DATASET.root_dataset, cfg.DATASET.list_val,

@@ -1,22 +1,36 @@
 """Encoder/decoder factory with the reference ``ModelBuilder`` arch names,
 plus the combined segmentation model and its random initialisation.
 
-Wired so far: ``resnet50dilated`` with ``ppm_deepsup_embedding`` (the
-StreetHazards open-set eval model) or ``ppm_deepsup`` (the closed-set and
-reconstruction evals). Other arch names raise ``NotImplementedError``;
-``ROADMAP.md`` queues them.
+Every name of the JAX package's ``ModelBuilder`` builds: the encoders
+``resnet18``, ``resnet34``, ``resnet50``, ``resnet101`` (output stride 32)
+and their ``dilated`` forms (8), ``resnext101``, ``hrnetv2`` and
+``mobilenetv2dilated``; the decoders ``c1``, ``c1_deepsup``, ``ppm``,
+``ppm_deepsup``, ``ppm_deepsup_embedding``, ``upernet`` and
+``upernet_lite``. An unknown name raises ``ValueError``, as in the JAX
+package.
+
+``fused_blocks=True`` routes the encoder's eligible ResNet ``Bottleneck``
+blocks through the fused kernel (inference only): the ResNet-50/101
+families and HRNet's ``layer1``. An encoder without such blocks
+(``BasicBlock`` ResNets, ResNeXt, MobileNet) raises rather than run
+unfused.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
 import torch.nn as nn
 
-from .decoders import PPMDeepsup, PPMDeepsupEmbedding
+from .decoders import (C1, C1DeepSup, PPM, PPMDeepsup, PPMDeepsupEmbedding,
+                       UPerNet)
+from .hrnet import hrnetv2
 from .layers import BNConfig, init_module
-from .resnet import resnet50
+from .mobilenet import MobileNetV2Dilated
+from .resnet import resnet18, resnet34, resnet50, resnet101
+from .resnext import resnext101
 
 # decoder BN bias of the reference's ModelBuilder.weights_init
 DECODER_BN_BIAS = 1e-4
@@ -39,49 +53,96 @@ class SegmentationModel(nn.Module):
         return self.decoder(conv_out, seg_size=seg_size, **decoder_kw)
 
 
-def _not_ported(kind: str, arch: str):
-    return NotImplementedError(
-        f"{kind} {arch!r} is not ported yet; ROADMAP.md queues it")
+# encoder name -> (factory, output stride)
+_RESNETS = {
+    "resnet18": (resnet18, 32), "resnet18dilated": (resnet18, 8),
+    "resnet34": (resnet34, 32), "resnet34dilated": (resnet34, 8),
+    "resnet50": (resnet50, 32), "resnet50dilated": (resnet50, 8),
+    "resnet101": (resnet101, 32), "resnet101dilated": (resnet101, 8),
+}
+# decoder name -> (class, extra keywords)
+_DECODERS = {
+    "c1": (C1, {}), "c1_deepsup": (C1DeepSup, {}), "ppm": (PPM, {}),
+    "ppm_deepsup": (PPMDeepsup, {}),
+    "ppm_deepsup_embedding": (PPMDeepsupEmbedding, {}),
+    "upernet_lite": (UPerNet, {"fpn_dim": 256}),
+    "upernet": (UPerNet, {"fpn_dim": 512}),
+}
+# the decoders that take ``use_softmax`` (the PPM deep-supervision ones
+# return raw scores whatever the reference's flag says)
+_SOFTMAX_DECODERS = ("c1", "c1_deepsup", "ppm", "upernet_lite", "upernet")
 
 
 class ModelBuilder:
     """Name-compatible factory: arch strings match the reference configs."""
 
-    ENCODER_FC_DIM = {"resnet50dilated": 2048}
+    ENCODER_FC_DIM = {
+        "mobilenetv2dilated": 320,
+        "resnet18": 512, "resnet18dilated": 512,
+        "resnet34": 512, "resnet34dilated": 512,
+        "resnet50": 2048, "resnet50dilated": 2048,
+        "resnet101": 2048, "resnet101dilated": 2048,
+        "resnext101": 2048,
+        "hrnetv2": 720,
+    }
+    # the encoders with ResNet Bottleneck blocks, which fused_blocks routes
+    FUSED_ENCODERS = ("resnet50", "resnet50dilated", "resnet101",
+                      "resnet101dilated", "hrnetv2")
 
     @staticmethod
     def build_encoder(arch="resnet50dilated", *,
                       bn: Optional[BNConfig] = None,
                       fused_blocks: bool = False):
         arch = arch.lower()
-        if arch == "resnet50dilated":
-            return resnet50(stem="deep", output_stride=8,
-                            bn=bn or BNConfig(), fused_blocks=fused_blocks)
-        raise _not_ported("encoder", arch)
+        bn = bn or BNConfig()
+        if arch in _RESNETS:
+            factory, output_stride = _RESNETS[arch]
+            return factory(stem="deep", output_stride=output_stride, bn=bn,
+                           fused_blocks=fused_blocks)
+        if arch == "resnext101":
+            return resnext101(bn=bn, fused_blocks=fused_blocks)
+        if arch == "hrnetv2":
+            return hrnetv2(bn=bn, fused_blocks=fused_blocks)
+        if arch == "mobilenetv2dilated":
+            if fused_blocks:
+                raise ValueError("fused_blocks routes ResNet Bottleneck "
+                                 "blocks; mobilenetv2dilated has none")
+            return MobileNetV2Dilated(output_stride=8, bn=bn)
+        raise ValueError(f"Architecture undefined: {arch}")
 
     @staticmethod
     def build_decoder(arch="ppm_deepsup_embedding", fc_dim=2048,
-                      num_class=13, *, bn: Optional[BNConfig] = None):
+                      num_class=13, use_softmax=False, *,
+                      bn: Optional[BNConfig] = None):
         arch = arch.lower()
-        decoders = {"ppm_deepsup_embedding": PPMDeepsupEmbedding,
-                    "ppm_deepsup": PPMDeepsup}
-        if arch in decoders:
-            return decoders[arch](num_class=num_class, fc_dim=fc_dim,
-                                  bn=bn or BNConfig())
-        raise _not_ported("decoder", arch)
+        if arch not in _DECODERS:
+            raise ValueError(f"Architecture undefined: {arch}")
+        cls, kw = _DECODERS[arch]
+        if arch in _SOFTMAX_DECODERS:
+            kw = {**kw, "use_softmax": use_softmax}
+        return cls(num_class=num_class, fc_dim=fc_dim, bn=bn or BNConfig(),
+                   **kw)
 
     @staticmethod
     def build_segmentation_model(arch_encoder, arch_decoder, num_class,
-                                 fc_dim=None, *,
+                                 fc_dim=None, use_softmax=False, *,
                                  bn: Optional[BNConfig] = None,
                                  fused_blocks: bool = False):
-        """``fused_blocks``: route the encoder's eligible bottlenecks
-        through the fused kernel (``models/resnet.py``); off by default."""
+        """The decoder is as wide as the encoder's output
+        (``ENCODER_FC_DIM``): a torch decoder's first convs take that many
+        channels, where flax reads them off the input, so an ``fc_dim`` that
+        differs (a config's 2048 beside a 512-wide ResNet-18) cannot be
+        honoured and gets a warning. ``fused_blocks``: route the encoder's
+        eligible bottlenecks through the fused kernel; off by default."""
         encoder = ModelBuilder.build_encoder(arch_encoder, bn=bn,
                                              fused_blocks=fused_blocks)
-        fc_dim = fc_dim or ModelBuilder.ENCODER_FC_DIM[arch_encoder.lower()]
+        width = ModelBuilder.ENCODER_FC_DIM[arch_encoder.lower()]
+        if fc_dim and fc_dim != width:
+            warnings.warn(f"fc_dim {fc_dim}: {arch_encoder} is {width} "
+                          f"wide; using {width}")
+        fc_dim = width
         decoder = ModelBuilder.build_decoder(arch_decoder, fc_dim, num_class,
-                                             bn=bn)
+                                             use_softmax, bn=bn)
         return SegmentationModel(encoder, decoder)
 
 

@@ -1,5 +1,6 @@
-"""The PPM deep-supervision decoders: the embedding one (the DML head) and
-the plain one, NCHW inside.
+"""The scene-parsing decoders, NCHW inside: the PPM deep-supervision ones
+(the embedding one, the DML head, and the plain one), and C1, C1DeepSup,
+PPM and UPerNet (the JAX package's ``models/decoders.py``).
 
 Parity target: the reference's ``PPMDeepsup_embedding`` (anomaly
 models.py:586-687) as the JAX package's ``models/decoders.py`` computes it:
@@ -27,9 +28,24 @@ resolution, not resized; in training ``scores`` and ``deepsup``. The JAX
 package returns ``ft`` always and its jit drops it where nothing reads it;
 eager PyTorch would build it at every scale of every eval.
 
+``C1``, ``C1DeepSup``, ``PPM`` and ``UPerNet`` (reference models.py
+:404-462, :466-511, :690-777) keep the reference's quirk that the JAX
+package keeps: no softmax at inference unless ``use_softmax`` is set, and
+then after the resize. In training (no ``seg_size``) ``C1DeepSup`` also
+returns ``deepsup`` off conv4, which ``train/state.py`` reads; at inference
+the JAX package returns it too and its jit drops it where nothing reads it,
+so the port leaves it out there, as ``PPMDeepsup`` leaves out ``ft``.
+``UPerNet``'s lateral widths follow the encoder's ``fc_dim`` (its stages
+are fc_dim / 8, / 4, / 2 and fc_dim wide: 256-2048 for the ResNet-50
+family, 64-512 for ResNet-18); the JAX package reads them off its inputs.
+``upernet_lite`` is ``fpn_dim`` 256, ``upernet`` 512.
+
 Modules keep the reference's key names (``ppm.0.1.weight``,
 ``conv_last.0.weight``, ``conv_last.4.bias``, ``cbr_deepsup.0.weight``,
-``conv_last_deepsup.weight``). Outputs are NHWC, as in the JAX package.
+``conv_last_deepsup.weight``; ``cbr.0.weight``, ``conv_last.weight``;
+``ppm_conv.0.0.weight``, ``fpn_in.0.0.weight``, ``fpn_out.0.0.0.weight``,
+``conv_last.0.0.weight``, ``conv_last.1.bias``). Outputs are NHWC, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -39,6 +55,7 @@ import torch.nn as nn
 
 from .layers import BNConfig, Conv, ConvBN
 from ..ops.distance import one_hot_center_logits
+from ..ops.pool import adaptive_avg_pool
 from ..ops.ppm_fuse import ppm_fuse_conv
 from ..ops.resize import bilinear_resize
 
@@ -47,6 +64,49 @@ PPM_CHANNELS = 512
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+def _inference_scores(x, seg_size, use_softmax: bool):
+    """NHWC class scores: as they are in training (no ``seg_size``), else
+    resized to ``seg_size`` and, with ``use_softmax``, softmaxed there in
+    the scores' dtype (CUDA autocast would return float32)."""
+    if seg_size is None:
+        return x
+    x = bilinear_resize(x, seg_size)
+    return torch.softmax(x, dim=-1).to(x.dtype) if use_softmax else x
+
+
+class C1(nn.Module):
+    """3x3 conv-bn-relu and a 1x1 classifier on the last feature map."""
+
+    def __init__(self, num_class: int = 150, fc_dim: int = 2048,
+                 use_softmax: bool = False, bn: BNConfig = BNConfig()):
+        super().__init__()
+        self.use_softmax = use_softmax
+        self.cbr = ConvBN(fc_dim, fc_dim // 4, 3, padding=1, bn=bn)
+        self.conv_last = Conv(fc_dim // 4, num_class)
+
+    def forward(self, conv_out, seg_size=None):
+        x = _nhwc(self.conv_last(self.cbr(conv_out[-1])))
+        return {"scores": _inference_scores(x, seg_size, self.use_softmax)}
+
+
+class C1DeepSup(C1):
+    """C1 plus the deep-supervision branch off conv4 (training only)."""
+
+    def __init__(self, num_class: int = 150, fc_dim: int = 2048,
+                 use_softmax: bool = False, bn: BNConfig = BNConfig()):
+        super().__init__(num_class, fc_dim, use_softmax, bn)
+        self.cbr_deepsup = ConvBN(fc_dim // 2, fc_dim // 4, 3, padding=1,
+                                  bn=bn)
+        self.conv_last_deepsup = Conv(fc_dim // 4, num_class)
+
+    def forward(self, conv_out, seg_size=None):
+        out = super().forward(conv_out, seg_size)
+        if seg_size is None:
+            out["deepsup"] = _nhwc(self.conv_last_deepsup(
+                self.cbr_deepsup(conv_out[-2])))
+        return out
 
 
 class _PPMTrunk(nn.ModuleList):
@@ -134,6 +194,24 @@ class PPMDeepsup(_PPMDeepsupBase):
         return out
 
 
+class PPM(nn.Module):
+    """The pyramid pooling trunk and head, no deep supervision."""
+
+    def __init__(self, num_class: int = 150, fc_dim: int = 4096,
+                 pool_scales=(1, 2, 3, 6), use_softmax: bool = False,
+                 bn: BNConfig = BNConfig()):
+        super().__init__()
+        self.use_softmax = use_softmax
+        self.ppm = _PPMTrunk(fc_dim, pool_scales, bn)
+        self.conv_last = _PPMHead(fc_dim + len(pool_scales) * PPM_CHANNELS,
+                                  num_class, bn)
+
+    def forward(self, conv_out, seg_size=None):
+        conv5 = conv_out[-1]
+        x = _nhwc(self.conv_last(conv5, self.ppm(conv5)))
+        return {"scores": _inference_scores(x, seg_size, self.use_softmax)}
+
+
 class PPMDeepsupEmbedding(_PPMDeepsupBase):
     """PPMDeepsup trunk whose K-dim conv output is read as a pixel
     embedding; logits are -||x - m*e_k||^2 against fixed one-hot centers
@@ -160,3 +238,51 @@ class PPMDeepsupEmbedding(_PPMDeepsupBase):
         if concat_ft:
             out["ft"] = _nhwc(_ppm_concat(conv5, pools))
         return out
+
+
+class UPerNet(nn.Module):
+    """FPN over the four feature maps with a pyramid pooling module on the
+    last; ``fpn_dim`` 512 (``upernet``) or 256 (``upernet_lite``)."""
+
+    def __init__(self, num_class: int = 150, fc_dim: int = 4096,
+                 pool_scales=(1, 2, 3, 6), fpn_dim: int = 256,
+                 use_softmax: bool = False, bn: BNConfig = BNConfig()):
+        super().__init__()
+        fpn_inplanes = (fc_dim // 8, fc_dim // 4, fc_dim // 2, fc_dim)
+        self.use_softmax = use_softmax
+        self.pool_scales = tuple(pool_scales)
+        self.ppm_conv = nn.ModuleList(
+            ConvBN(fc_dim, PPM_CHANNELS, 1, bn=bn) for _ in pool_scales)
+        self.ppm_last_conv = ConvBN(
+            fc_dim + len(pool_scales) * PPM_CHANNELS, fpn_dim, 3, padding=1,
+            bn=bn)
+        self.fpn_in = nn.ModuleList(ConvBN(c, fpn_dim, 1, bn=bn)
+                                    for c in fpn_inplanes[:-1])
+        self.fpn_out = nn.ModuleList(
+            nn.Sequential(ConvBN(fpn_dim, fpn_dim, 3, padding=1, bn=bn))
+            for _ in fpn_inplanes[:-1])
+        self.conv_last = nn.Sequential(
+            ConvBN(len(fpn_inplanes) * fpn_dim, fpn_dim, 3, padding=1,
+                   bn=bn),
+            Conv(fpn_dim, num_class))
+
+    def forward(self, conv_out, seg_size=None):
+        conv5 = conv_out[-1]
+        size5 = conv5.shape[-2:]
+        ppm_out = [conv5] + [
+            conv(bilinear_resize(adaptive_avg_pool(
+                conv5, scale, channel_last=False), size5, channel_last=False))
+            for scale, conv in zip(self.pool_scales, self.ppm_conv)]
+        f = self.ppm_last_conv(torch.cat(ppm_out, dim=1))
+        features = [f]
+        for i in reversed(range(len(conv_out) - 1)):
+            lateral = self.fpn_in[i](conv_out[i])
+            f = lateral + bilinear_resize(f, lateral.shape[-2:],
+                                          channel_last=False)
+            features.append(self.fpn_out[i](f))
+        features.reverse()
+        size = features[0].shape[-2:]
+        fusion = [features[0]] + [bilinear_resize(p, size, channel_last=False)
+                                  for p in features[1:]]
+        x = _nhwc(self.conv_last(torch.cat(fusion, dim=1)))
+        return {"scores": _inference_scores(x, seg_size, self.use_softmax)}

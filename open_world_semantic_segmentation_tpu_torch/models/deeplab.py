@@ -18,6 +18,14 @@ the 1024x2048 eval in bf16 channels_last with a slow direct kernel
 (``PERF.md`` §5). ``dilated_impl="native"`` on the factories keeps cuDNN's
 conv. The state-dict keys are the same either way.
 
+The MobileNet factories (``deeplabv3plus_mobilenet``,
+``deeplabv3_mobilenet``, ``deeplabv3plus_embedding_mobilenet``) put the
+heads on ``models/mobilenet.py mobilenet_v2``: the low-level features of
+block 3 (24 channels) and the ASPP on block 17 (320). They have no
+bottleneck for the fused route, and refuse ``fused_blocks``; ``style``
+picks the backbone's padding (``"torchvision"``, the reference's, or
+``"csail"``).
+
 The self-distillation wrapper (FT / PLM incremental learning) shares one
 backbone across the base head ``classifier`` (16 classes) and novel heads
 ``classifier_1`` .. ``classifier_N`` of 16 + i classes, each a full V3+
@@ -38,6 +46,7 @@ import torch
 import torch.nn as nn
 
 from .layers import BNConfig, ConvBN, init_module
+from .mobilenet import mobilenet_v2
 from .resnet import resnet_deeplab
 from ..ops.distance import one_hot_center_logits
 from ..ops.pool import global_avg_pool
@@ -255,6 +264,44 @@ def deeplabv3plus_embedding_resnet50(num_classes=16, output_stride=16, *,
     (the reference composes the embedding wrapper with ResNet-101)."""
     return _v3plus(DeepLabV3PlusEmbedding, 50, num_classes, output_stride,
                    fused_blocks, dilated_impl)
+
+
+def _mobilenet(wrapper, v3plus, num_classes, output_stride, fused_blocks,
+               dilated_impl, style):
+    if fused_blocks:
+        raise ValueError("fused_blocks routes ResNet Bottleneck blocks; "
+                         "MobileNetV2 has none")
+    bb = mobilenet_v2(output_stride, style)
+    rates = _aspp_rates(output_stride)
+    head = (DeepLabHeadV3Plus(320, 24, num_classes, rates,
+                              dilated_impl=dilated_impl) if v3plus
+            else DeepLabHead(320, num_classes, rates,
+                             dilated_impl=dilated_impl))
+    return wrapper(bb, head)
+
+
+def deeplabv3plus_mobilenet(num_classes=21, output_stride=16, *,
+                            fused_blocks=False, dilated_impl="shift",
+                            style="torchvision"):
+    return _mobilenet(DeepLabV3Plus, True, num_classes, output_stride,
+                      fused_blocks, dilated_impl, style)
+
+
+def deeplabv3_mobilenet(num_classes=21, output_stride=16, *,
+                        fused_blocks=False, dilated_impl="shift",
+                        style="torchvision"):
+    return _mobilenet(DeepLabV3Plus, False, num_classes, output_stride,
+                      fused_blocks, dilated_impl, style)
+
+
+def deeplabv3plus_embedding_mobilenet(num_classes=16, output_stride=16, *,
+                                      fused_blocks=False,
+                                      dilated_impl="shift",
+                                      style="torchvision"):
+    """The embedding head on MobileNetV2: the JAX package's API extension
+    (the reference composes the embedding wrapper with ResNets)."""
+    return _mobilenet(DeepLabV3PlusEmbedding, True, num_classes,
+                      output_stride, fused_blocks, dilated_impl, style)
 
 
 def deeplabv3plus_embedding_self_distillation_resnet101(

@@ -1,6 +1,8 @@
 """ResNet backbones with declarative dilation, NCHW.
 
-Covers the CSAIL "deep stem" variant (three 3x3 convs, 128 channels into
+``resnet18`` / ``resnet34`` stack ``BasicBlock``, ``resnet50`` /
+``resnet101`` ``Bottleneck`` (``models/resnext.py`` subclasses it). Covers
+the CSAIL "deep stem" variant (three 3x3 convs, 128 channels into
 layer1) that the anomaly stack uses, with the dilation surgery of its
 ``ResnetDilated``, and the torchvision 7x7 stem (one 7x7 stride-2 conv, 64
 channels into layer1) with ``replace_stride_with_dilation`` that the DeepLab
@@ -69,7 +71,8 @@ class Bottleneck(nn.Module):
                  downsample: bool = False, bn: BNConfig = BNConfig(),
                  groups: int = 1, base_width: int = 64, fused: bool = False):
         super().__init__()
-        width = int(planes * (base_width / 64.0)) * groups
+        width = self.width(planes, groups, base_width)
+        out_ch = planes * self.expansion
         self.conv1 = nn.Conv2d(inplanes, width, 1, bias=False)
         self.bn1 = bn.make(width)
         # the 3x3 carries stride and dilation (torch Bottleneck layout)
@@ -78,17 +81,22 @@ class Bottleneck(nn.Module):
                                dilation=first_dilation, groups=groups,
                                bias=False)
         self.bn2 = bn.make(width)
-        self.conv3 = nn.Conv2d(width, planes * 4, 1, bias=False)
-        self.bn3 = bn.make(planes * 4)
+        self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False)
+        self.bn3 = bn.make(out_ch)
         self.relu = nn.ReLU(inplace=True)
-        self.downsample = (ConvBN(inplanes, planes * 4, 1, stride,
+        self.downsample = (ConvBN(inplanes, out_ch, 1, stride,
                                   relu=False, bn=bn) if downsample else None)
         # the fused route's tile, or None where the block stays unfused
         self.fused_tile = None
         if fused and stride == 1 and groups == 1:
-            self.fused_tile = fused_block_tile(inplanes, width, planes * 4,
+            self.fused_tile = fused_block_tile(inplanes, width, out_ch,
                                                first_dilation)
         self._folded = {}     # (dtype, device) -> folded kernel weights
+
+    @staticmethod
+    def width(planes: int, groups: int, base_width: int) -> int:
+        """The 3x3's channel count (torchvision's ``Bottleneck``)."""
+        return int(planes * (base_width / 64.0)) * groups
 
     def forward(self, x):
         if self.fused_tile is not None and not self.training:
@@ -178,7 +186,8 @@ class ResNet(nn.Module):
                  fused_blocks: bool = False):
         super().__init__()
         if fused_blocks and block is not Bottleneck:
-            raise ValueError("fused_blocks routes Bottleneck blocks only")
+            raise ValueError(f"fused_blocks routes Bottleneck blocks only, "
+                             f"not {block.__name__}")
         fused = {"fused": True} if fused_blocks else {}
         if stem not in ("deep", "7x7"):
             raise ValueError(f"unknown stem {stem!r}")
@@ -230,6 +239,14 @@ class ResNet(nn.Module):
             x = layer(x)
             outs.append(x)
         return outs
+
+
+def resnet18(**kw):
+    return ResNet(block=BasicBlock, layers=(2, 2, 2, 2), **kw)
+
+
+def resnet34(**kw):
+    return ResNet(block=BasicBlock, layers=(3, 4, 6, 3), **kw)
 
 
 def resnet50(**kw):

@@ -17,6 +17,17 @@ JAX ``convert_deeplab_checkpoint(head_names=...)``). The ASPP projection's
 one (1, 1, 1280, 256) kernel is the same parameter whether the JAX package
 computes it per branch or over the concat.
 
+Every encoder and decoder family of the JAX ``ModelBuilder`` converts:
+the ResNet rules cover ``BasicBlock`` and ``GroupBottleneck`` (ResNeXt) as
+well as ``Bottleneck`` (the JAX ``_translate_resnet_key``), HRNet adds its
+transitions and stage modules (``_translate_hrnet_key``), the CSAIL
+MobileNet its ``features`` (``_translate_csail_mobilenet_key``); the
+decoders are the PPM and C1 families (``_translate_decoder_key``) and
+UPerNet (``_translate_upernet_key``), told apart by UPerNet's
+``conv_fusion``. A DeepLab MobileNet backbone (the JAX ``backbone/net``)
+becomes ``backbone.low_level_features`` / ``high_level_features``
+(``_translate_mobilenet_key``) in the layout of its ``style``.
+
 The reference's own ``encoder_epoch_*.pth`` / ``decoder_epoch_*.pth`` and
 DeepLab ``model_state`` need no conversion: they load into the port with
 ``load_state_dict``.
@@ -39,6 +50,65 @@ _ENCODER_RULES = (
     (r"layer(\d)_(\d+)/down/conv", r"layer\1.\2.downsample.0"),
     (r"layer(\d)_(\d+)/down/bn", r"layer\1.\2.downsample.1"),
 )
+# HRNet beyond its ResNet-named stem and layer1: a transition to a new
+# branch (the last of its stage) is a Sequential of one conv-bn-relu
+_HRNET_RULES = (
+    (r"trans(\d)_(\d)/(conv|bn)",
+     lambda m: "transition{}.{}.{}{}".format(
+         int(m[1]) + 1, m[2], "0." if int(m[2]) == int(m[1]) + 1 else "",
+         "0" if m[3] == "conv" else "1")),
+    (r"stage(\d)_(\d+)/branch(\d)_(\d+)/c(\d)/(conv|bn)",
+     r"stage\1.\2.branches.\3.\4.\6\5"),
+    (r"stage(\d)_(\d+)/branch(\d)_(\d+)/down/conv",
+     r"stage\1.\2.branches.\3.\4.downsample.0"),
+    (r"stage(\d)_(\d+)/branch(\d)_(\d+)/down/bn",
+     r"stage\1.\2.branches.\3.\4.downsample.1"),
+    (r"stage(\d)_(\d+)/fuse(\d)_(\d)/d(\d)/conv",
+     r"stage\1.\2.fuse_layers.\3.\4.\5.0"),
+    (r"stage(\d)_(\d+)/fuse(\d)_(\d)/d(\d)/bn",
+     r"stage\1.\2.fuse_layers.\3.\4.\5.1"),
+    (r"stage(\d)_(\d+)/fuse(\d)_(\d)/conv",
+     r"stage\1.\2.fuse_layers.\3.\4.0"),
+    (r"stage(\d)_(\d+)/fuse(\d)_(\d)/bn",
+     r"stage\1.\2.fuse_layers.\3.\4.1"),
+)
+# a MobileNetV2 inverted residual's layers, by flax module, relative to the
+# block: (style, expand block?) -> index in its ``conv`` Sequential
+_MOBILENET_LAYERS = {
+    ("csail", True): {"expand/cb/conv": "0", "expand/cb/bn": "1",
+                      "dw/cb/conv": "3", "dw/cb/bn": "4",
+                      "project/conv": "6", "project/bn": "7"},
+    ("csail", False): {"dw/cb/conv": "0", "dw/cb/bn": "1",
+                       "project/conv": "3", "project/bn": "4"},
+    ("torchvision", True): {"expand/cb/conv": "0.0", "expand/cb/bn": "0.1",
+                            "dw/cb/conv": "1.0", "dw/cb/bn": "1.1",
+                            "project/conv": "2", "project/bn": "3"},
+    ("torchvision", False): {"dw/cb/conv": "0.0", "dw/cb/bn": "0.1",
+                             "project/conv": "1", "project/bn": "2"},
+}
+
+
+def _mobilenet_rules(style: str, deeplab: bool):
+    """The flax ``net/...`` paths of a MobileNetV2 of ``style``: under
+    ``features`` (CSAIL), or split into ``low_level_features`` (blocks 0-3)
+    and ``high_level_features`` (DeepLab)."""
+
+    def features(index: int) -> str:
+        if not deeplab:
+            return f"features.{index}"
+        part = "low" if index < 4 else "high"
+        return f"{part}_level_features.{index}"
+
+    def block(m):
+        n = int(m[1])
+        return "{}.conv.{}".format(
+            features(n), _MOBILENET_LAYERS[(style, n != 1)][m[2]])
+
+    return ((r"net/stem/cb/conv", lambda m: features(0) + ".0"),
+            (r"net/stem/cb/bn", lambda m: features(0) + ".1"),
+            (r"net/block(\d+)/(\w+/cb/\w+|project/\w+)", block))
+
+
 _DECODER_RULES = (
     (r"ppm/ppm(\d)/conv", r"ppm.\1.1"),
     (r"ppm/ppm(\d)/bn", r"ppm.\1.2"),
@@ -48,6 +118,26 @@ _DECODER_RULES = (
     (r"deepsup/cbr_deepsup/conv", "cbr_deepsup.0"),
     (r"deepsup/cbr_deepsup/bn", "cbr_deepsup.1"),
     (r"deepsup/conv_last_deepsup/conv", "conv_last_deepsup"),
+    # the C1 family
+    (r"cbr/conv", "cbr.0"),
+    (r"cbr/bn", "cbr.1"),
+    (r"conv_last/conv", "conv_last"),
+    (r"cbr_deepsup/conv", "cbr_deepsup.0"),
+    (r"cbr_deepsup/bn", "cbr_deepsup.1"),
+    (r"conv_last_deepsup/conv", "conv_last_deepsup"),
+)
+_UPERNET_RULES = (
+    (r"ppm_conv(\d)/conv", r"ppm_conv.\1.0"),
+    (r"ppm_conv(\d)/bn", r"ppm_conv.\1.1"),
+    (r"ppm_last_conv/conv", "ppm_last_conv.0"),
+    (r"ppm_last_conv/bn", "ppm_last_conv.1"),
+    (r"fpn_in(\d)/conv", r"fpn_in.\1.0"),
+    (r"fpn_in(\d)/bn", r"fpn_in.\1.1"),
+    (r"fpn_out(\d)/conv", r"fpn_out.\1.0.0"),
+    (r"fpn_out(\d)/bn", r"fpn_out.\1.0.1"),
+    (r"conv_fusion/conv", "conv_last.0.0"),
+    (r"conv_fusion/bn", "conv_last.0.1"),
+    (r"conv_last/conv", "conv_last.1"),
 )
 # the ASPP (either head), relative to its module prefix
 _ASPP_RULES = (
@@ -97,6 +187,14 @@ def _flatten(tree, prefix=""):
             yield path, value
 
 
+def _prefixed(prefix: str, repl):
+    """A rule's replacement (a template or a function of the match) with
+    ``prefix`` in front."""
+    if callable(repl):
+        return lambda m: prefix + repl(m)
+    return prefix + repl
+
+
 def _torch_prefix(module_path: str, rules) -> str:
     for pattern, repl in rules:
         if re.fullmatch(pattern, module_path):
@@ -123,6 +221,15 @@ def _convert_part(params, batch_stats, rules) -> Dict[str, torch.Tensor]:
     return state
 
 
+def _encoder_rules(params, deeplab: bool = False,
+                   mobilenet_style: str = "csail"):
+    """The rules of an encoder's flax tree: MobileNet (``net``) or the
+    ResNet names, with HRNet's."""
+    if "net" in params:
+        return _mobilenet_rules(mobilenet_style, deeplab)
+    return _ENCODER_RULES + _HRNET_RULES
+
+
 def state_dict_from_jax(variables) -> Tuple[Dict[str, torch.Tensor],
                                             Dict[str, torch.Tensor]]:
     """flax variables of a SegmentationModel -> (encoder, decoder) torch
@@ -130,22 +237,27 @@ def state_dict_from_jax(variables) -> Tuple[Dict[str, torch.Tensor],
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     enc = _convert_part(params["encoder"], stats.get("encoder", {}),
-                        _ENCODER_RULES)
+                        _encoder_rules(params["encoder"]))
     dec = _convert_part(params["decoder"], stats.get("decoder", {}),
-                        _DECODER_RULES)
+                        _UPERNET_RULES if "conv_fusion" in params["decoder"]
+                        else _DECODER_RULES)
     return enc, dec
 
 
-def deeplab_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+def deeplab_state_dict_from_jax(variables, mobilenet_style="torchvision"
+                                ) -> Dict[str, torch.Tensor]:
     """flax variables of a JAX ``DeepLabV3Plus``, ``DeepLabV3PlusEmbedding``
     (numpy arrays, ``backbone`` and ``head``) or
     ``DeepLabV3PlusSelfDistillation`` (``backbone``, ``classifier``,
     ``classifier_1`` ..) -> the port's DeepLab state dict. A V3+ head (it
-    has ``project``) or a V3 head is told apart by its parameters."""
+    has ``project``) or a V3 head is told apart by its parameters; a
+    MobileNet backbone's layout follows ``mobilenet_style``."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    backbone_rules = tuple((pattern, "backbone." + repl)
-                           for pattern, repl in _ENCODER_RULES)
+    backbone_rules = tuple(
+        (pattern, _prefixed("backbone.", repl))
+        for pattern, repl in _encoder_rules(params["backbone"], True,
+                                            mobilenet_style))
     state = _convert_part(params["backbone"], stats.get("backbone", {}),
                           backbone_rules)
     for name, head in params.items():

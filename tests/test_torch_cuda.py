@@ -573,3 +573,69 @@ def test_artifact_loads_and_runs_on_cuda(cuda, no_tf32, tmp_path):
     report = artifacts.check_artifact(labels, run=True)
     assert report["ran_on_zeros"] and report["valid"], report["problems"]
     assert report["out_avals"] == ["uint8[2, 64, 96]"]
+
+
+# --------------------------------------------------------------------------
+# the rest of the CSAIL zoo on cuda (fp32, TF32 off) against the CPU: every
+# encoder name of ModelBuilder under a decoder of its width, full width,
+# seeded random weights; scores within 1e-3 of their largest magnitude
+ZOO_PAIRS = [("resnet18", "c1"), ("resnet18dilated", "c1_deepsup"),
+             ("resnet34", "ppm"), ("resnet34dilated", "ppm_deepsup"),
+             ("resnet50", "upernet"), ("resnet101", "upernet_lite"),
+             ("resnet101dilated", "ppm_deepsup_embedding"),
+             ("resnext101", "upernet_lite"), ("hrnetv2", "c1"),
+             ("mobilenetv2dilated", "c1_deepsup")]
+
+
+def _zoo_scores(encoder, decoder, device, x, fused_blocks=False):
+    from open_world_semantic_segmentation_tpu_torch.models.builder import (
+        ModelBuilder)
+
+    torch.manual_seed(0)
+    model = ModelBuilder.build_segmentation_model(
+        encoder, decoder, num_class=13, fused_blocks=fused_blocks)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.eval().to(device)
+    with torch.no_grad():
+        return model(x.to(device), seg_size=x.shape[1:3])["scores"].cpu()
+
+
+def _close(got, want, rtol=1e-3):
+    scale = float(want.abs().max())
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= rtol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoder,decoder", ZOO_PAIRS,
+                         ids=[f"{e}+{d}" for e, d in ZOO_PAIRS])
+def test_zoo_forward_on_cuda_matches_cpu(cuda, no_tf32, encoder, decoder):
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 96, 128, 3)).astype(np.float32))
+    _close(_zoo_scores(encoder, decoder, "cuda", x),
+           _zoo_scores(encoder, decoder, "cpu", x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoder,decoder,routed", [
+    ("resnet101dilated", "ppm_deepsup_embedding", 32),
+    ("resnet50", "upernet", 13), ("resnet101", "upernet", 30),
+    ("hrnetv2", "c1", 4)])
+def test_zoo_fused_route_on_cuda_matches_unfused(cuda, no_tf32, encoder,
+                                                 decoder, routed):
+    """The fused route (its kernel, in float32) against the unfused
+    forward on cuda, fp32 with TF32 off, at 96x128: resnet101dilated at
+    dilations 2 and 4, the OS32 ResNets' layers 3 and 4 at dilation 1 on
+    maps of 1/16 and 1/32, HRNet's layer1."""
+    from open_world_semantic_segmentation_tpu_torch.models.builder import (
+        ModelBuilder)
+
+    enc = ModelBuilder.build_encoder(encoder, fused_blocks=True)
+    assert sum(getattr(m, "fused_tile", None) is not None
+               for m in enc.modules()) == routed
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, 96, 128, 3)).astype(np.float32))
+    fused_bottleneck.launches = 0
+    got = _zoo_scores(encoder, decoder, "cuda", x, fused_blocks=True)
+    assert fused_bottleneck.launches == routed
+    _close(got, _zoo_scores(encoder, decoder, "cuda", x))

@@ -26,6 +26,8 @@ from open_world_semantic_segmentation_tpu.metrics.segmentation import (
     intersection_and_union_jax)
 from open_world_semantic_segmentation_tpu.openset.evaluator import (
     OODEvaluator as JaxOODEvaluator, device_pyramid as jax_device_pyramid)
+from open_world_semantic_segmentation_tpu.train.convert import (
+    convert_segmentation_model)
 from open_world_semantic_segmentation_tpu_torch.cli import eval_ood
 from open_world_semantic_segmentation_tpu_torch.core.config import (
     load_config)
@@ -90,18 +92,60 @@ def variables():
     return jax_twin_variables(5)
 
 
+@pytest.fixture(scope="module")
+def started_variables(items, variables):
+    """The twin's weights with a data-dependent start, as ``chip_smoke.py
+    data_start`` gives the card's: BN running statistics from train-mode
+    forwards over the items, one batch per pyramid level (their mean: a
+    start on one level leaves the other's distance sums in the
+    thousands), then the embedding's last 1x1 conv scaled to a std of 0.8
+    over both levels, the one-hot centres' scale. At the seeded weights
+    every distance sum clips at 400 and the min-max normalised dissum map
+    is 0/0; after the start it has values. The started port twin's state
+    dicts go back to flax through the JAX package's reader, so both sides
+    load the same weights."""
+    model = port_twin_from(variables)
+    levels = [torch.from_numpy(np.concatenate([it["img_data"][level]
+                                               for it in items]))
+              for level in range(len(IMG_SIZES))]
+    seg_size = items[0]["seg_label"].shape[1:3]
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = None          # running stats: the batches' mean
+    with torch.no_grad():
+        for img in levels:
+            model.train()(img, seg_size=seg_size)
+        std = torch.cat([model.eval()(img, seg_size=seg_size)["ft"]
+                         for img in levels]).std().item()
+        head = model.decoder.conv_last[4]
+        head.weight.mul_(0.8 / std)
+        head.bias.mul_(0.8 / std)
+    return convert_segmentation_model(
+        {k: v.numpy() for k, v in model.encoder.state_dict().items()},
+        {k: v.numpy() for k, v in model.decoder.state_dict().items()})
+
+
 @pytest.mark.parametrize("method", ["dissum", "knn"])
-def test_eval_matches_jax(items, variables, method):
+def test_eval_matches_jax(items, started_variables, method):
+    """Per-image conf maps and the summary metrics. The dissum maps must
+    be finite wherever the JAX package's are, and not all constant: a
+    check of NaN against NaN would pass whatever the port computed."""
+    variables = started_variables
     jax_ev = JaxOODEvaluator(jax_twin(), variables, num_class=13,
                              method=method)
     port_ev = OODEvaluator(port_twin_from(variables), num_class=13,
                            method=method)
+    varied = 0
     for item in items:
         want = jax_ev.evaluate_item(item)
         got = port_ev.evaluate_item(item)
-        np.testing.assert_allclose(got["conf"], np.asarray(want["conf"]),
-                                   atol=1e-4)
+        conf, want_conf = np.asarray(got["conf"]), np.asarray(want["conf"])
+        np.testing.assert_allclose(conf, want_conf, atol=1e-4)
+        assert np.isfinite(conf[np.isfinite(want_conf)]).all()
+        finite = conf[np.isfinite(conf)]
+        varied += finite.size > 0 and finite.min() < finite.max()
         assert (got["pred"] == np.asarray(want["pred"])).mean() >= 0.999
+    assert varied >= 1, "every conf map is constant or NaN"
     want, got = jax_ev.summary(verbose=False), port_ev.summary(verbose=False)
     assert got["images"] == 3
     for key in METRICS:

@@ -238,8 +238,10 @@ def test_model_builder_builds_ppm_deepsup():
     keys = set(dec.state_dict())
     assert {"ppm.0.1.weight", "conv_last.0.weight", "conv_last.4.bias",
             "cbr_deepsup.0.weight", "conv_last_deepsup.weight"} <= keys
-    with pytest.raises(NotImplementedError, match="upernet"):
-        ModelBuilder.build_decoder("upernet")
+    # upernet is ported now (tests/test_torch_zoo_decoders.py); an unknown
+    # name raises as in the JAX ModelBuilder
+    with pytest.raises(ValueError, match="Architecture undefined"):
+        ModelBuilder.build_decoder("upernet_xl")
 
 
 def test_rec_cosine_matches_jax():

@@ -126,7 +126,7 @@ def cli_export(root, model, name, *opts):
             "--out", str(root / name), *opts]
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(export_model, "build_anomaly_model",
-                   lambda cfg, device: model)
+                   lambda cfg, device, **kw: model)
         mp.setattr(export_model, "init_or_load_variables",
                    lambda cfg, m: m)
         return export_model._entry(argv)

@@ -56,7 +56,9 @@ for name in ("cli.train_embedding", "cli.train", "data.native",
              "utils.colors", "utils.visualize", "cli.eval_ood_rec",
              "cli.test_closed", "cli.eval_fishyscapes", "cli.serve",
              "cli.export_model", "cli.artifacts", "cli.demo_video",
-             "cli.make_odgt", "cli.pick_images", "core.export"):
+             "cli.make_odgt", "cli.pick_images", "core.export",
+             "models.resnext", "models.hrnet", "models.mobilenet",
+             "tools", "tools.golden_run"):
     assert port.__name__ + "." + name in names, name
 """
 
@@ -67,7 +69,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(maxsplit=1)
-    assert int(n) >= 71 and bad.strip() == "[]", out.stdout
+    assert int(n) >= 76 and bad.strip() == "[]", out.stdout
 
 
 def test_entry_points_refuse_cuda_without_gpu():
@@ -138,9 +140,12 @@ def test_deeplab_entry_points_raise_for_what_is_not_ported(tmp_path):
     cfg.DEEPLAB.dataset = "voc"
     with pytest.raises(NotImplementedError, match="voc.*ROADMAP"):
         main_deeplab.main(cfg, device="cpu")
+    # every DeepLab model of the JAX package is ported now (the MobileNet
+    # factories: tests/test_torch_deeplab_mobilenet.py); a name of neither
+    # package raises, listing the known ones
     cfg.DEEPLAB.dataset = "cityscapes"
-    cfg.DEEPLAB.model = "deeplabv3plus_mobilenet"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.DEEPLAB.model = "deeplabv3plus_xception"
+    with pytest.raises(ValueError, match="deeplabv3plus_mobilenet"):
         main_deeplab.build_model(cfg)
 
 

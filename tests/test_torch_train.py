@@ -542,9 +542,10 @@ def test_train_embedding_cli_on_cpu(street_tree, tmp_path, capsys):
 
 
 def test_train_cli_raises_for_unported_decoder(street_tree, tmp_path):
-    # ppm_deepsup is ported now (the closed-set and reconstruction evals'
-    # decoder); upernet still waits in ROADMAP.md
+    # every decoder of the JAX package is ported now (upernet too:
+    # tests/test_torch_zoo_decoders.py); a name the JAX ModelBuilder does
+    # not know raises as it does there
     cfg = load_config(os.path.join(REPO, "configs/train_embedding.yaml"), [
-        "MODEL.arch_decoder", "upernet", "DIR", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="upernet"):
+        "MODEL.arch_decoder", "upernet_xl", "DIR", str(tmp_path)])
+    with pytest.raises(ValueError, match="Architecture undefined: upernet_xl"):
         train_cli.main(cfg, torch.float32, max_steps=1, device="cpu")
