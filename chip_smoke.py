@@ -6,8 +6,9 @@ segmentation server and its exported artifact, DML embedding training,
 the Cityscapes NPM few-shot eval (with score calibration, result PNGs and
 Fishyscapes Lost&Found), the live video demo, DeepLab training and the
 incremental few-shot fine-tuning (FT / PLM self-distillation,
-teacher-student distillation), a golden convergence run, and every other
-encoder and decoder of the CSAIL model zoo, end to end.
+teacher-student distillation), a golden convergence run, every other
+encoder and decoder of the CSAIL model zoo, the int8 PTQ surface and
+DeepLab training on PASCAL VOC, end to end.
 
     python3 chip_smoke.py
 
@@ -54,7 +55,9 @@ Phases (any failure exits non-zero and prints no result):
    once per image and fused_bottleneck 15 block calls per image, counted.
    Then the Cityscapes NPM shape in fp32 (TF32 off):
    deeplabv3plus_embedding_resnet101 base-trained by
-   ``cli.main_deeplab.main`` (crop 128, batch 4, 400 steps), 5-shot car
+   ``cli.main_deeplab.main`` (crop 128, batch 4, 400 steps) under
+   ``torch.use_deterministic_algorithms(True)`` (one seed, one set of
+   weights; ``CUBLAS_WORKSPACE_CONFIG`` is set at the top), 5-shot car
    prototypes, the NPM eval on 19 val images and the no-override eval
    (prototypes >= 1, no-override novel IoU 0, NPM novel IoU > 0.1 and
    above it, base mIoU >= 0.3 and >= 0.9 x the no-override mIoU);
@@ -213,6 +216,37 @@ Phases (any failure exits non-zero and prints no result):
    MobileNet DeepLab factories: one 1024x2048 bf16 forward each (finite,
    ms, peak memory) and the fp32 card forward of a 96x128 image against
    the CPU's.
+10. quant phase (``ops/quant.py``, after the Cityscapes eval): the exact
+   int8 conv (one ``torch._int_mm`` per tap) against its plain version (a
+   float64 conv of the integers on the card), int32 results equal, at
+   every quantized conv geometry of resnet50dilated +
+   ppm_deepsup_embedding at the eval's largest level and at the DeepLab
+   ASPP's 1x1 and rate 6, 12, 18 convs, each timed beside cuDNN's bf16
+   conv; the golden StreetHazards weights through ``cli.eval_ood.main``
+   (fp32 with TF32 off, dissum, 5 scales around their 128-pixel scale, 13
+   images) with
+   quant off and in int8, int8-3x3, int8-hybrid and w4a8 (scales from the
+   first 4 val images): imgs/s, AUROC, AUPR, FPR95 and mIoU, the drift
+   against the float run within the JAX package's bounds (AUROC 0.05,
+   AUPR 0.08, mIoU 0.05) in int8 and int8-hybrid (int8-3x3's and w4a8's
+   printed: their dissum drift leaves the bounds on these weights, and
+   the port's forward in both is the JAX package's; each of their
+   quantized convs on one image, given the card's input on the CPU,
+   equals the card's output bit for bit), int8 convs counted on the card
+   in every quantized run; ``OOD.ood knn`` under int8-hybrid (knn_cosine once per
+   image, every map finite); deeplabv3plus_embedding_resnet101 at OS16 on
+   a 1024x2048 image, bf16 against int8-hybrid (its backbone calibrated
+   on 2 val images): ms, peak memory, argmax agreement; ``cli/serve``
+   with ``--quant int8-hybrid --calib-glob`` answering 4 ``/segment``
+   requests (held to a direct forward of the served model; p50); an
+   int8-hybrid artifact from ``cli/export_model`` (its header's quant,
+   ``aten._int_mm`` and int8 constants in its program) against the live
+   model on two frames;
+11. VOC phase: ``cli.main_deeplab.main`` with DEEPLAB.dataset voc on a
+   synthetic VOCdevkit (16 train_aug images and 4 val of 375x500,
+   500x375, 333x500, 500x333): deeplabv3plus_mobilenet, 21 classes, crop
+   513, batch 8, bf16, 6 steps, then the val pass one image per batch:
+   s/step, loader wait s/step, finite losses and mIoU.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.
@@ -232,6 +266,10 @@ import threading
 import time
 
 import numpy as np
+
+# cuBLAS reads it at its first call: the golden Cityscapes training runs
+# under torch.use_deterministic_algorithms(True) (tools/golden_run.py)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
@@ -524,6 +562,32 @@ N_ZOO_IMAGES = 2
 ZOO_CHECK_SIZE = (96, 128)      # the fp32 card-against-CPU forward
 ZOO_DEEPLAB = ("deeplabv3plus_mobilenet", "deeplabv3_mobilenet",
                "deeplabv3plus_embedding_mobilenet")
+# quant phase (ops/quant.py): the golden weights evaluated int8 in every
+# eval mode beside the same run's bf16 eval, with the drift bounds of the
+# JAX package's tests/test_quant_drift.py; a 5-scale pyramid around the
+# golden images' 128-pixel training scale (their short side), as the eval
+# config's spans 300-600 around 720x1280's
+QUANT_EVAL_MODES = ("int8", "int8-3x3", "int8-hybrid", "w4a8")
+QUANT_DRIFT = {"auroc": 0.05, "aupr": 0.08, "mean_iou": 0.05}
+# the modes that test gates; int8-3x3 and w4a8 are printed: on the golden
+# weights their dissum drift leaves the bounds (AUPR -0.169 and -0.217,
+# PERF.md §6), where the port's forward in both is the JAX package's (the
+# Bottleneck twin of tests/test_torch_quant_model.py), and
+# quant_conv_device_check holds their convs on the card to the CPU
+QUANT_GATED_MODES = ("int8", "int8-hybrid")
+QUANT_PYRAMID = (96, 112, 128, 144, 160)
+QUANT_MAX_SIZE = 400
+QUANT_CALIB_IMAGES = 4          # the JAX eval's default calib_images
+QUANT_DEEPLAB_CALIB = 2         # Cityscapes val images calibrating DeepLab
+ASPP_QUANT_SHAPE = (1, 2048, 64, 128)   # the OS16 ASPP input at 1024x2048
+# VOC: deeplabv3plus_mobilenet, 21 classes, crop 513 (the reference's
+# VOC recipe), a synthetic VOCdevkit of differing image sizes
+VOC_SIZES = ((375, 500), (500, 375), (333, 500), (500, 333))
+VOC_TRAIN_IMAGES = 16
+VOC_VAL_IMAGES = 4
+VOC_STEPS = 6
+VOC_BATCH = 8
+VOC_CROP = 513
 # a served request or stream that has not answered in this many seconds
 # fails the run instead of holding it to the chip's time limit
 SERVE_TIMEOUT_S = 120
@@ -4026,6 +4090,456 @@ def dilated_conv_ways(cfg):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+def int8_conv_geometries(cfg):
+    """Every quantized conv's geometry on ``cfg``'s model (resnet50dilated
+    + ppm_deepsup_embedding) at the eval's largest pyramid level: one
+    ``calib`` forward of a random image with a hook on each quantized
+    conv. Returns (N, Cin, H, W, Cout, k, stride, padding, dilation,
+    groups) tuples, each once, in forward order."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli._common import (
+        build_anomaly_model)
+    from open_world_semantic_segmentation_tpu_torch.data.odgt import (
+        eval_pyramid_shapes)
+    from open_world_semantic_segmentation_tpu_torch.models.layers import (
+        QuantConv2d)
+
+    h, w = eval_pyramid_shapes(*FULL_SIZE, cfg.DATASET.imgSizes,
+                               cfg.DATASET.imgMaxSize,
+                               cfg.DATASET.padding_constant)[-1]
+    model = build_anomaly_model(cfg, DEVICE, quant="calib")
+    geoms = []
+
+    def hook(m, args):
+        g = (*args[0].shape, m.out_channels, m.kernel_size[0], m.stride[0],
+             m.padding[0], m.dilation[0], m.groups)
+        if g not in geoms:
+            geoms.append(g)
+
+    for m in model.modules():
+        if isinstance(m, QuantConv2d):
+            m.register_forward_pre_hook(hook)
+    x = torch.randn(1, h, w, 3, device=DEVICE)
+    with torch.inference_mode(), torch.autocast(DEVICE, dtype=torch.bfloat16):
+        model(x, seg_size=FULL_SIZE)
+    del model
+    return geoms, (h, w)
+
+
+def int8_conv_check(cfg):
+    """Part 1 of the quant phase: the int8 conv's tap form
+    (``torch._int_mm``) against its plain version (a float64 conv of the
+    integers, on the card) at every quantized conv geometry of the eval
+    model at its largest level, at the DeepLab ASPP's 1x1 and dilated
+    convs (rates 6, 12, 18 at 1024x2048, OS16), at a 3-channel stem conv
+    and at a 32-group 3x3; int32 results equal. Each
+    timed with CUDA events beside the bf16 cuDNN conv (channels_last) of
+    the same shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from open_world_semantic_segmentation_tpu_torch.ops import quant
+
+    geoms, level = int8_conv_geometries(cfg)
+    n, c, h, w = ASPP_QUANT_SHAPE
+    geoms += [(n, c, h, w, 256, 1, 1, 0, 1, 1)] + [
+        (n, c, h, w, 256, 3, 1, r, r, 1) for r in DILATED_RATES]
+    # the K padding (a 3-channel input) and the block-diagonal grouped form
+    # (resnext101's first 3x3, 32 groups, at 1/4 of the level)
+    geoms += [(1, 3, *level, 64, 3, 2, 1, 1, 1),
+              (1, 128, level[0] // 4, level[1] // 4, 128, 3, 1, 1, 1, 32)]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    rows = []
+    for geom in geoms:
+        n, cin, h, w, cout, k, st, pad, dil, g = geom
+        x = torch.randint(-127, 128, (n, cin, h, w), dtype=torch.int8,
+                          device=DEVICE, generator=gen).contiguous(
+            memory_format=torch.channels_last)
+        wq = torch.randint(-127, 128, (cout, cin // g, k, k),
+                           dtype=torch.int8, device=DEVICE, generator=gen)
+        args = (st, pad, dil, g)
+        calls = quant.int8_conv2d.calls
+        got = quant.int8_conv2d(x, wq, *args)
+        if quant.int8_conv2d.calls != calls + 1:
+            raise AssertionError("int8_conv2d took no CUDA path")
+        want = quant.int8_conv2d_plain(x, wq, *args)
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8 conv {geom}: {int((got != want).sum())}"
+                                 " int32 values differ from the plain version")
+        xb = x.to(torch.bfloat16)
+        wb = wq.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        row = {"geometry": list(geom),
+               "int8_ms": cuda_time_ms(lambda: quant.int8_conv2d(x, wq, *args),
+                                       iters=10),
+               "bf16_cudnn_ms": cuda_time_ms(
+                   lambda: F.conv2d(xb, wb, None, st, pad, dil, g), iters=10)}
+        rows.append(row)
+        log("int8 conv " + json.dumps(row))
+    return {"eval_level": list(level), "geometries": len(rows),
+            "equal": True, "rows": rows}
+
+
+def golden_quant_cfg(root, weights):
+    """The golden StreetHazards run's tree and trained weights, scored by
+    dissum on the 5-scale QUANT_PYRAMID (``tools/quant_drift.py
+    eval_cfg``)."""
+    from open_world_semantic_segmentation_tpu_torch.tools.quant_drift import (
+        eval_cfg)
+
+    cfg = eval_cfg(os.path.join(root, "golden", "sh"), weights,
+                   img_sizes=QUANT_PYRAMID, max_size=QUANT_MAX_SIZE)
+    cfg.DIR = os.path.join(root, "golden_quant")
+    return cfg
+
+
+def quant_golden_evals(cfg):
+    """Part 2: ``cli.eval_ood.main`` (dissum) on the golden weights
+    without quant and in each QUANT_EVAL_MODES mode (calibrated on the
+    first QUANT_CALIB_IMAGES val images); imgs/s and the metrics beside the
+    float run's, the drift of QUANT_GATED_MODES gated by QUANT_DRIFT. In
+    float32 with TF32 off,
+    as the golden run scores and the JAX package's drift test evaluates: a
+    bf16 float baseline adds bf16's own drift on the 5-scale average. Part
+    3: knn under int8-hybrid, knn_cosine launched once per image, every
+    map finite."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli import eval_ood
+    from open_world_semantic_segmentation_tpu_torch.ops import quant
+    from open_world_semantic_segmentation_tpu_torch.tools.golden_run import (
+        exact_fp32)
+
+    def evaluate(c, mode):
+        with exact_fp32():
+            return eval_ood.main(c, torch.float32, device=DEVICE, quant=mode,
+                                 calib_images=QUANT_CALIB_IMAGES)
+
+    metrics = ("auroc", "aupr", "fpr", "mean_iou", "accuracy")
+    runs = {}
+    for mode in ("off",) + QUANT_EVAL_MODES:
+        calls = quant.int8_conv2d.calls
+        result, _ = counted(f"quant eval {mode}",
+                            lambda mode=mode: evaluate(cfg, mode))
+        ran = quant.int8_conv2d.calls - calls
+        if (ran > 0) != (mode != "off"):
+            raise AssertionError(f"quant eval {mode}: {ran} int8 convs")
+        run = {k: result[k] for k in metrics}
+        _finite(f"quant eval {mode}", run)
+        run.update(images=result["images"],
+                   imgs_per_s=result["images"] / result["seconds"],
+                   int8_convs=ran)
+        if mode != "off":
+            run["drift"] = {k: run[k] - runs["off"][k] for k in metrics}
+        runs[mode] = run
+        log(f"quant golden eval {mode}: " + json.dumps(run))
+    for mode in QUANT_GATED_MODES:
+        for key, bound in QUANT_DRIFT.items():
+            if not abs(runs[mode]["drift"][key]) < bound:
+                raise AssertionError(f"quant {mode}: {key} drift "
+                                     f"{runs[mode]['drift'][key]} >= {bound}")
+
+    n_val = GOLDEN_RECIPE["n_val"]
+    c = cfg.clone()
+    c.OOD.ood = "knn"
+    with kept_confs() as confs:
+        result, launches = counted(
+            "quant knn int8-hybrid", lambda: evaluate(c, "int8-hybrid"),
+            {"knn_cosine": n_val})
+        finite = all(bool(torch.isfinite(m).all()) for m in confs)
+    knn = {k: result[k] for k in metrics}
+    knn.update(images=result["images"], maps=len(confs),
+               launches=launches["knn_cosine"])
+    log("quant knn int8-hybrid: " + json.dumps(knn))
+    if not finite or len(confs) != n_val:
+        raise AssertionError(f"quant knn: {len(confs)} maps, finite {finite}")
+    _finite("quant knn", {k: knn[k] for k in metrics})
+    runs["knn_int8_hybrid"] = knn
+    return runs
+
+
+def quant_conv_device_check(cfg, mode):
+    """Every quantized conv of the golden model's ``mode`` forward on the
+    card (one val image at the largest pyramid level, the scales
+    calibrated on it), given on the CPU the input it saw on the card,
+    gives the card's output bit for bit: the drift of a mode outside
+    QUANT_GATED_MODES is then the host's too, not a fault of the card."""
+    import copy
+
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli._common import (
+        build_anomaly_model, calibrate_quant_model, init_or_load_variables)
+    from open_world_semantic_segmentation_tpu_torch.data.odgt import (
+        ValPipeline)
+    from open_world_semantic_segmentation_tpu_torch.models.layers import (
+        QuantConv2d)
+    from open_world_semantic_segmentation_tpu_torch.tools.golden_run import (
+        exact_fp32)
+
+    item = next(iter(ValPipeline(
+        cfg.DATASET.root_dataset, cfg.DATASET.list_val,
+        img_sizes=cfg.DATASET.imgSizes, img_max_size=cfg.DATASET.imgMaxSize,
+        padding_constant=cfg.DATASET.padding_constant, max_sample=1)))
+    img = item["img_data"][-1]
+    seg_size = tuple(item["seg_label"].shape[1:3])
+    model = build_anomaly_model(cfg, DEVICE, use_softmax=True, quant=mode)
+    init_or_load_variables(cfg, model)
+    with exact_fp32():
+        calibrate_quant_model(cfg, model, [([img], seg_size)], quant=mode)
+    on_cpu = copy.deepcopy(model).cpu()
+    seen = []
+
+    def record(name):
+        def hook(_, args, out):
+            seen.append((name, args[0].detach().cpu(), out.detach().cpu()))
+        return hook
+
+    hooks = [m.register_forward_hook(record(name))
+             for name, m in model.named_modules()
+             if isinstance(m, QuantConv2d) and m.mode != "off"]
+    with torch.no_grad(), exact_fp32():
+        model(torch.from_numpy(img).to(DEVICE), seg_size=seg_size)
+    for h in hooks:
+        h.remove()
+    with torch.no_grad():
+        unequal = [name for name, x, y in seen
+                   if not torch.equal(on_cpu.get_submodule(name)(x), y)]
+    out = {"mode": mode, "shape": list(img.shape), "convs": len(seen),
+           "unequal": unequal}
+    log("quant conv device check: " + json.dumps(out))
+    if unequal or not seen:
+        raise AssertionError(f"quant {mode}: {len(unequal)} of {len(seen)} "
+                             "convs differ between the card and the CPU")
+    return out
+
+
+def quant_deeplab_forward(root):
+    """Part 4: deeplabv3plus_embedding_resnet101 (OS16) on one 1024x2048
+    Cityscapes val image with the deeplab phase's checkpoint, bf16 against
+    int8-hybrid (the backbone int8, calibrated by its calib-hybrid twin on
+    QUANT_DEEPLAB_CALIB val images): ms per image (CUDA events), peak
+    memory, and the argmax agreement of the two."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli.main_deeplab import (
+        get_transforms, get_val_dataset)
+    from open_world_semantic_segmentation_tpu_torch.core.config import (
+        load_config)
+    from open_world_semantic_segmentation_tpu_torch.models import deeplab
+    from open_world_semantic_segmentation_tpu_torch.ops import quant
+    from open_world_semantic_segmentation_tpu_torch.train.checkpoint import (
+        load_deeplab_state)
+
+    cfg = load_config("configs/cityscapes_embedding.yaml", [
+        "DATASET.root_dataset", os.path.join(root, "cityscapes")])
+    state = load_deeplab_state(os.path.join(root, "deeplab_embedding.pth"))
+
+    def build(mode):
+        model = deeplab.deeplabv3plus_embedding_resnet101(quant=mode)
+        model.load_state_dict(state)
+        return model.eval().to(DEVICE, memory_format=torch.channels_last)
+
+    ds = get_val_dataset(cfg, get_transforms(cfg.DEEPLAB.crop_size)[1])
+    images = [ds[i][0][None] for i in range(QUANT_DEEPLAB_CALIB)]
+    models = {"bf16": build("off"), "int8-hybrid": build("int8-hybrid")}
+    quant.calibrate_and_prequantize(build("calib-hybrid"),
+                                    models["int8-hybrid"], images,
+                                    mode="int8-hybrid", dtype=torch.bfloat16)
+    x = torch.from_numpy(images[0]).to(DEVICE)
+    out, preds = {}, {}
+    for name, model in models.items():
+        def run(model=model):
+            with torch.inference_mode(), torch.autocast(
+                    DEVICE, dtype=torch.bfloat16):
+                return model(x)[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        calls = quant.int8_conv2d.calls
+        preds[name] = run().argmax(-1)
+        out[name] = {"ms": cuda_time_ms(run, iters=5),
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                     "int8_convs": quant.int8_conv2d.calls - calls}
+    if out["int8-hybrid"]["int8_convs"] == 0 or out["bf16"]["int8_convs"]:
+        raise AssertionError(f"deeplab quant forward: {out}")
+    out["argmax_agreement"] = float(
+        (preds["bf16"] == preds["int8-hybrid"]).float().mean())
+    log("quant deeplab forward 1024x2048: " + json.dumps(out))
+    return out
+
+
+def quant_serve_export(root, cfg):
+    """Parts 5 and 6: ``cli/serve`` with ``--quant int8-hybrid
+    --calib-glob`` (the slice tree's images) answering N_SERVE_SMALL
+    ``/segment`` requests, each held to a direct forward of the served
+    model (labels on SERVE_LABEL_AGREEMENT of pixels); the p50 latency.
+    Then an int8-hybrid artifact from ``cli/export_model`` (bf16, maxlogit,
+    the same glob): its header's quant, ``aten._int_mm`` in its program, and
+    its forward on two frames against the live quantized model's (labels
+    on SERVE_LABEL_AGREEMENT, maxlogit within SERVE_CONF_TOL of the
+    largest)."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli import export_model
+    from open_world_semantic_segmentation_tpu_torch.core.export import (
+        load_exported, read_program)
+    from open_world_semantic_segmentation_tpu_torch.ops import quant
+
+    bf16 = torch.bfloat16
+    images = os.path.join(root, "images/test/t1")
+    calib_glob = os.path.join(images, "*.png")
+    names = sorted(os.listdir(images), key=lambda n: int(n.split(".")[0]))
+    frames = []
+    for name in names[:N_SERVE_SMALL]:
+        with open(os.path.join(images, name), "rb") as f:
+            frames.append(f.read())
+    calls = quant.int8_conv2d.calls
+    served = _Served(cfg, bf16, quant="int8-hybrid", calib_glob=calib_glob)
+    try:
+        ms, _ = counted("serve int8-hybrid", lambda: [
+            served.segment(f)[0] for f in frames])
+    finally:
+        served.close()
+    live = served.seg.model
+    summary = {"serve": {**_latency(ms), "startup_s": served.startup_s,
+                         "int8_convs": quant.int8_conv2d.calls - calls,
+                         "check": served.check("int8-hybrid",
+                                               direct_forward(live, bf16))}}
+    if summary["serve"]["int8_convs"] == 0:
+        raise AssertionError("the int8-hybrid server ran no int8 conv")
+
+    tic = time.perf_counter()
+    path = export_model.main(cfg, bf16, *FULL_SIZE, method="maxlogit",
+                             quant="int8-hybrid", calib_glob=calib_glob,
+                             out=os.path.join(root, "quant.owss"),
+                             device=DEVICE)
+    export_s = time.perf_counter() - tic
+    program, meta = read_program(path)
+    # the bf16 forward sits in an autocast region: a nested graph
+    targets = {str(n.target) for gm in program.graph_module.modules()
+               if isinstance(gm, torch.fx.GraphModule)
+               for n in gm.graph.nodes if n.op == "call_function"}
+    int8_consts = sum(t.dtype == torch.int8 for t in
+                      {**program.state_dict, **program.constants}.values())
+    del program
+    fn, _ = load_exported(path)
+    agree, err = 1.0, 0.0
+    direct = direct_forward(live, bf16, "maxlogit")
+    for f in frames[:2]:
+        arr = served.seg._decode(f)[None]
+        pred, conf = (t.cpu().numpy() for t in fn(
+            torch.from_numpy(arr).to(DEVICE)))
+        want_pred, want_conf = direct(arr)
+        agree = min(agree, float((pred == want_pred).mean()))
+        want = want_conf.astype(np.float32)
+        err = max(err, float(np.abs(conf.astype(np.float32) - want).max()
+                             / np.abs(want).max()))
+    summary["export"] = {"export_s": export_s, "bytes": os.path.getsize(path),
+                         "quant": meta.get("quant"),
+                         "int_mm_in_program": "aten._int_mm.default" in targets,
+                         "int8_constants": int8_consts,
+                         "label_agreement": agree, "maxlogit_max_rel": err}
+    log("quant serve and export: " + json.dumps(summary))
+    if not (meta.get("quant") == "int8-hybrid"
+            and summary["export"]["int_mm_in_program"] and int8_consts > 0
+            and agree >= SERVE_LABEL_AGREEMENT and err <= SERVE_CONF_TOL):
+        raise AssertionError(f"int8 artifact: {summary['export']}")
+    return summary
+
+
+def quant_phase(root, cfg, golden_weights):
+    """The int8 PTQ surface (``ops/quant.py``) on the card at full width;
+    see the module note. Returns the summary and the knn launches of the
+    int8-hybrid knn eval."""
+    summary = {"int8_conv": int8_conv_check(cfg)}
+    golden_cfg = golden_quant_cfg(root, golden_weights)
+    summary["golden"] = quant_golden_evals(golden_cfg)
+    summary["conv_device_checks"] = [
+        quant_conv_device_check(golden_cfg, mode) for mode in QUANT_EVAL_MODES
+        if mode not in QUANT_GATED_MODES]
+    summary["deeplab"] = quant_deeplab_forward(root)
+    summary.update(quant_serve_export(root, cfg))
+    return summary, summary["golden"]["knn_int8_hybrid"]["launches"]
+
+
+def write_voc_tree(root, n_train, n_val, seed):
+    """A VOCdevkit tree of VOC_SIZES photos (JPEG) with labels of VOC's 21
+    classes and 255 object borders (PNG); ``train_aug`` and ``val``."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "VOCdevkit", "VOC2012")
+    palette = rng.integers(0, 255, (21, 3))
+    for split, n, labels in (("train_aug", n_train, "SegmentationClassAug"),
+                             ("val", n_val, "SegmentationClass")):
+        names = [f"{split}_{i:06d}" for i in range(n)]
+        for i, name in enumerate(names):
+            h, w = VOC_SIZES[i % len(VOC_SIZES)]
+            lab = np.zeros((h, w), np.uint8)
+            for _ in range(4):
+                r0, c0 = rng.integers(0, h - h // 4), rng.integers(0, w - w // 4)
+                lab[r0:r0 + rng.integers(h // 8, h // 2),
+                    c0:c0 + rng.integers(w // 8, w // 2)] = rng.integers(1, 21)
+            img = np.clip(palette[lab] + rng.normal(0, 20, (h, w, 3)), 0,
+                          255).astype(np.uint8)
+            lab[np.roll(lab, 1, 0) != lab] = 255
+            for sub, arr, ext in (("JPEGImages", img, ".jpg"),
+                                  (labels, lab, ".png")):
+                os.makedirs(os.path.join(base, sub), exist_ok=True)
+                Image.fromarray(arr).save(os.path.join(base, sub, name + ext))
+        lists = os.path.join(base, "ImageSets", "Segmentation")
+        os.makedirs(lists, exist_ok=True)
+        with open(os.path.join(lists, split + ".txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+    return root
+
+
+def voc_phase(root):
+    """``cli.main_deeplab.main`` with DEEPLAB.dataset voc on a synthetic
+    VOC tree: deeplabv3plus_mobilenet, 21 classes, VOC's train transform
+    (random scale, pad-if-needed crop 513, flip), batch VOC_BATCH, bf16, for
+    VOC_STEPS steps, then its val pass over VOC_VAL_IMAGES images of
+    differing sizes (one per batch); s/step (median after 2 warm-ups) and
+    loader wait s/step, every loss and the mIoU finite."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli import main_deeplab
+    from open_world_semantic_segmentation_tpu_torch.core.config import (
+        load_config)
+
+    tree = write_voc_tree(os.path.join(root, "voc"), VOC_TRAIN_IMAGES,
+                          VOC_VAL_IMAGES, SEED + 5)
+    cfg = load_config(None, [
+        "DATASET.root_dataset", tree, "DEEPLAB.dataset", "voc",
+        "DEEPLAB.model", "deeplabv3plus_mobilenet",
+        "DEEPLAB.num_classes", "21", "DEEPLAB.crop_size", str(VOC_CROP),
+        "DEEPLAB.batch_size", str(VOC_BATCH),
+        "DEEPLAB.total_itrs", str(VOC_STEPS),
+        "DEEPLAB.val_interval", str(VOC_STEPS), "DEEPLAB.lr", "0.01",
+        "DIR", os.path.join(root, "voc_ckpt")])
+    torch.cuda.reset_peak_memory_stats()
+    out, _ = counted("voc train", lambda: main_deeplab.main(
+        cfg, torch.bfloat16, device=DEVICE, log_every=1))
+    log_ = out["log"]
+    seconds = np.diff([0.0] + [e["seconds"] for e in log_])
+    waits = np.diff([0.0] + [e["wait"] for e in log_])
+    summary = {"steps": out["steps"], "skipped": out["skipped"],
+               "losses": [e["loss"] for e in log_],
+               "s_per_step_median": float(np.median(seconds[TRAIN_WARMUP:])),
+               "loader_wait_s_per_step": float(np.mean(waits[TRAIN_WARMUP:])),
+               "val_miou": out["validations"],
+               "val_sizes": [list(s) for s in VOC_SIZES[:VOC_VAL_IMAGES]],
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    log("voc: " + json.dumps(summary))
+    if out["steps"] != VOC_STEPS or out["skipped"] or len(
+            out["validations"]) != 1 or not np.isfinite(
+            summary["losses"] + out["validations"]).all():
+        raise AssertionError(f"voc: {summary}")
+    return summary
+
+
 def main():
     import torch
 
@@ -4070,8 +4584,13 @@ def main():
         demo, demo_launches = phase("demo", demo_phase, root)
         cityscapes_rest = phase("cityscapes rest", cityscapes_rest_phase,
                                 root)
+        quantized, quant_knn_launches = phase(
+            "quant", quant_phase, root, cfg,
+            [os.path.join(root, "golden", "ckpt", f"{part}_epoch_1.pth")
+             for part in ("encoder", "decoder")])
         training, (plm_launches, teacher_launches) = phase(
             "deeplab train", deeplab_train_phase, root)
+        voc = phase("voc", voc_phase, root)
         zoo, zoo_launches = phase("zoo", zoo_phase, root, cfg)
     faulthandler.cancel_dump_traceback_later()
     # launches on the main path: knn_cosine in the knn run, fused_bottleneck
@@ -4092,6 +4611,8 @@ def main():
     # the golden run: knn_cosine and fused_bottleneck on trained weights;
     # the zoo's fused runs, block calls per encoder
     kernels[0]["golden_launches"] = golden_launches["knn_cosine"]
+    # the int8-hybrid knn eval on the golden weights
+    kernels[0]["quant_launches"] = quant_knn_launches
     kernels[1]["golden_launches"] = golden_launches["fused_bottleneck"]
     for encoder, count in zoo_launches.items():
         kernels[1]["zoo"][encoder]["launches"] = count
@@ -4112,6 +4633,8 @@ def main():
     log(f"gpu: {gpu}; deeplab training: " + json.dumps(training))
     log(f"gpu: {gpu}; golden: " + json.dumps(golden, default=float))
     log(f"gpu: {gpu}; zoo: " + json.dumps(zoo))
+    log(f"gpu: {gpu}; quant: " + json.dumps(quantized))
+    log(f"gpu: {gpu}; voc: " + json.dumps(voc))
     log(f"total {time.perf_counter() - tic:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -41,22 +41,26 @@ def compute_dtype(args):
 
 
 def build_anomaly_model(cfg: Config, device=None, fused_blocks: bool = False,
-                        train: bool = False, use_softmax: bool = False):
+                        train: bool = False, use_softmax: bool = False,
+                        quant: str = "off"):
     """The config's encoder + decoder on ``device`` (channels last on CUDA,
     the layout cuDNN's convs prefer), in training mode if ``train`` else in
     eval mode. ``fused_blocks`` routes the backbone's eligible bottlenecks
     through the fused kernel (eval mode only). ``use_softmax``: the
     decoders that take it (C1, C1DeepSup, PPM, UPerNet) return softmax
     probabilities at inference; the inference CLIs ask for it, as the
-    JAX package's do, so a multi-scale eval averages probabilities."""
+    JAX package's do, so a multi-scale eval averages probabilities.
+    ``quant``: an int8 PTQ mode (``ops/quant.py``; ``calibrate_for_quant``
+    prepares the model)."""
     from ..models.builder import ModelBuilder
 
     device = resolve_device(device)
     model = ModelBuilder.build_segmentation_model(
         cfg.MODEL.arch_encoder, cfg.MODEL.arch_decoder,
         num_class=cfg.DATASET.num_class, fc_dim=cfg.MODEL.fc_dim,
-        use_softmax=use_softmax, fused_blocks=fused_blocks)
-    model = model.train(train).to(device)
+        use_softmax=use_softmax, fused_blocks=fused_blocks, train=train,
+        quant=quant)
+    model = model.to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     return model
@@ -96,6 +100,66 @@ def init_or_load_variables(cfg: Config, model, *, seed: int = 0):
     model.encoder.load_state_dict(enc)
     model.decoder.load_state_dict(dec)
     return model
+
+
+def calibrate_quant_model(cfg: Config, model, groups, *, quant: str,
+                          dtype=torch.float32, use_softmax: bool = False):
+    """Prepare ``model`` (built with ``quant``, its weights loaded) for the
+    int8 eval: a ``calib`` twin with the same weights records the
+    activation scales over ``groups``, ``(images, seg_size)`` pairs (NHWC
+    arrays, one forward each), then ``ops.quant.apply_quant_state``
+    prequantizes ``model`` or, under ``w4a8``, gives it the scales alone.
+    Returns ``model``."""
+    from ..ops.quant import apply_quant_state, calibrate
+
+    device = next(model.parameters()).device
+    calib = build_anomaly_model(cfg, device, use_softmax=use_softmax,
+                                quant="calib")
+    calib.load_state_dict(model.state_dict())
+    state = {}
+    for images, seg_size in groups:
+        state = calibrate(calib, images, seg_size=seg_size, dtype=dtype)
+    del calib
+    return apply_quant_state(model, state, quant)
+
+
+def calibrate_for_quant(cfg: Config, model, size, *, dtype=torch.float32,
+                        use_softmax: bool, calib_glob: str = None,
+                        n_noise: int = 4, quant: str = "int8"):
+    """Calibrate the int8 activation scales of ``model`` at ``size`` (H, W)
+    and prequantize its weights (``calibrate_quant_model``): on the images
+    ``calib_glob`` matches (the first 16, sorted; resized and normalised
+    as the server does), or, without a glob, on ``n_noise`` images of
+    seeded white noise in the normalised range. A glob that matches
+    nothing raises rather than calibrate on noise. Returns ``model``."""
+    import glob as globmod
+
+    import numpy as np
+
+    from ..data.native import resize_normalize
+
+    imgs = []
+    if calib_glob:
+        from PIL import Image
+
+        matched = sorted(globmod.glob(calib_glob))
+        if not matched:
+            raise FileNotFoundError(
+                f"--calib-glob {calib_glob!r} matched no files: refusing "
+                "to calibrate on white noise instead")
+        for p in matched[:16]:
+            with Image.open(p) as im:
+                rgb = np.asarray(im.convert("RGB"))
+            imgs.append(resize_normalize(rgb, tuple(size))[None])
+        print(f"int8 calibration: {len(imgs)} image(s) used "
+              f"({len(matched)} matched {calib_glob!r}, cap 16)")
+    if not imgs:
+        rng = np.random.default_rng(0)
+        imgs = [rng.standard_normal((1, *size, 3)).astype(np.float32)
+                for _ in range(n_noise)]
+    return calibrate_quant_model(cfg, model, [(imgs, tuple(size))],
+                                 quant=quant, dtype=dtype,
+                                 use_softmax=use_softmax)
 
 
 def epoch_checkpoint_path(cfg: Config, kind: str, epoch: int) -> str:

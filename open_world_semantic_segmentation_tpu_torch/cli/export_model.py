@@ -6,8 +6,13 @@ it loads with ``core.export.load_exported`` and runs with no model code, on
 the device it was exported on (``--device``, recorded as ``platforms``).
 Export always builds the unfused backbone: the fused route launches its
 kernel through ctypes, which ``torch.export`` cannot trace, and
-``core/export.py`` refuses a model on it. ``--quant`` keeps the JAX package's choices; any but ``off``
-raises until ``ops/quant.py`` is ported.
+``core/export.py`` refuses a model on it. ``--quant`` (int8, int8-hybrid,
+int8-3x3; ``ops/quant.py``) exports the int8 PTQ model: its activation
+scales calibrated at the export size on the images ``--calib-glob``
+matches (or on white noise), its weights prequantized, so the artifact
+holds int8 weight constants, the scales, and the int8 convs as
+``aten._int_mm`` on CUDA (a float64 conv of the integer values on the
+CPU); the header's ``quant`` names the mode.
 
 Usage:
   python -m open_world_semantic_segmentation_tpu_torch.cli.export_model \
@@ -21,6 +26,7 @@ import torch
 
 from ._common import (
     build_anomaly_model,
+    calibrate_for_quant,
     compute_dtype,
     config_parser,
     init_or_load_variables,
@@ -62,18 +68,26 @@ def _export_npm(cfg, precision_dtype, height, width, batch, device, out):
 
 def main(cfg, precision_dtype=torch.bfloat16, height=720, width=1280,
          batch=1, method="dissum", out="model.owss", quant="off",
-         pyramid=False, npm=False, device=None):
+         pyramid=False, npm=False, device=None, calib_glob=None):
     """``pyramid=True`` exports the multi-scale eval (one forward per
     cfg.DATASET.imgSizes scale, scores averaged at (height, width), conf +
     argmax) as one artifact; otherwise a single-scale forward at (height,
     width). ``npm=True`` exports the few-shot NPM pipeline instead (the
-    prototype a runtime input)."""
+    prototype a runtime input). ``quant``: an int8 PTQ mode, calibrated
+    at (height, width) on the images ``calib_glob`` matches."""
     check_quant(quant)
     if npm:
+        if quant != "off":
+            raise ValueError("--npm exports the DeepLab NPM pipeline, "
+                             "which has no --quant")
         return _export_npm(cfg, precision_dtype, height, width, batch,
                            device, out)
-    model = build_anomaly_model(cfg, device, use_softmax=True)
+    model = build_anomaly_model(cfg, device, use_softmax=True, quant=quant)
     init_or_load_variables(cfg, model)
+    if quant != "off":
+        calibrate_for_quant(cfg, model, (height, width),
+                            dtype=precision_dtype, use_softmax=True,
+                            calib_glob=calib_glob, quant=quant)
     if pyramid:
         from ..data.odgt import eval_pyramid_shapes
 
@@ -111,8 +125,10 @@ def _entry(argv=None):
                         choices=["dissum", "msp", "maxlogit", "none"])
     parser.add_argument("--out", default="model.owss")
     parser.add_argument("--quant", choices=QUANT_MODES, default="off",
-                        help="int8 export: not ported yet, any value but "
-                             "off raises")
+                        help="export the int8 PTQ model (ops/quant.py)")
+    parser.add_argument("--calib-glob", default=None,
+                        help="glob of representative images for the int8 "
+                             "activation calibration")
     parser.add_argument("--pyramid", action="store_true",
                         help="export the full multi-scale eval pipeline "
                              "(one input per DATASET.imgSizes scale)")
@@ -124,7 +140,8 @@ def _entry(argv=None):
     cfg = parse_config(args)
     return main(cfg, compute_dtype(args), args.height, args.width,
                 args.batch, args.method, args.out, quant=args.quant,
-                pyramid=args.pyramid, npm=args.npm, device=args.device)
+                pyramid=args.pyramid, npm=args.npm, device=args.device,
+                calib_glob=args.calib_glob)
 
 
 if __name__ == "__main__":

@@ -23,8 +23,13 @@ trainer starts from its seed alone). Embedding models
 train with 16 classes and the open-world unknown remap
 (main_embedding.py:336, 401); the self-distillation model trains its
 newest head only. One GPU: batches go to the device directly (the JAX
-package's multi-host input shards wait, ``ROADMAP.md``). VOC needs
-``data/voc.py``, not ported yet.
+package's multi-host input shards wait, ``ROADMAP.md``).
+``DEEPLAB.dataset voc`` trains on PASCAL VOC's ``train_aug`` split
+(``data/voc.py``) with the reference's VOC transform (random scale 0.5-2,
+a pad-if-needed crop, a flip; main.py:103-110) and validates on ``val``,
+one image per batch at the default DEEPLAB.val_batch_size 1 (VOC's val
+images differ in size, and batches stack, as in the JAX package); VOC has
+21 classes (DEEPLAB.num_classes 21).
 
 ``MODEL_MAP`` names the ported factories; ``build_deeplab_model`` gives the
 config's model on a device, channels_last on CUDA, in eval mode unless
@@ -47,6 +52,7 @@ from ..core.device import resolve_device
 from ..data import transforms as et
 from ..data.cityscapes import Cityscapes
 from ..data.loader import batch_iterator
+from ..data.voc import VOCSegmentation
 from ..data.prefetch import prefetch_to_device
 from ..metrics.segmentation import StreamSegMetrics
 from ..models import deeplab as deeplab_models
@@ -72,24 +78,37 @@ MODEL_MAP = {
 }
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet; ROADMAP.md "
-                               "queues it")
+DATASETS = ("cityscapes", "voc")
+
+
+def _check_dataset(dataset: str) -> str:
+    if dataset not in DATASETS:
+        raise ValueError(f"DEEPLAB.dataset {dataset!r}: one of {DATASETS}")
+    return dataset
 
 
 def get_transforms(crop_size: int, dataset: str = "cityscapes"):
-    """(train transform, val transform) of Cityscapes, main.py:103-147.
-    The train transforms draw from the ``random.Random`` they are called
-    with. Other datasets raise until their data module is ported."""
-    if dataset != "cityscapes":
-        raise _not_ported(f"dataset {dataset!r}")
-    train_tf = et.ExtCompose([
-        et.ExtRandomCrop(size=(crop_size, crop_size)),
-        et.ExtColorJitter(brightness=0.5, contrast=0.5, saturation=0.5),
-        et.ExtRandomHorizontalFlip(),
-        et.ExtToTensor(),
-        et.ExtNormalize(),
-    ])
+    """(train transform, val transform), main.py:103-147: VOC's random
+    scale, pad-if-needed crop and flip, or Cityscapes' crop, colour jitter
+    and flip. The train transforms draw from the ``random.Random`` they are
+    called with."""
+    if _check_dataset(dataset) == "voc":
+        train_tf = et.ExtCompose([
+            et.ExtRandomScale((0.5, 2.0)),
+            et.ExtRandomCrop(size=(crop_size, crop_size),
+                             pad_if_needed=True),
+            et.ExtRandomHorizontalFlip(),
+            et.ExtToTensor(),
+            et.ExtNormalize(),
+        ])
+    else:
+        train_tf = et.ExtCompose([
+            et.ExtRandomCrop(size=(crop_size, crop_size)),
+            et.ExtColorJitter(brightness=0.5, contrast=0.5, saturation=0.5),
+            et.ExtRandomHorizontalFlip(),
+            et.ExtToTensor(),
+            et.ExtNormalize(),
+        ])
     return train_tf, et.ExtCompose([et.ExtToTensor(), et.ExtNormalize()])
 
 
@@ -104,17 +123,24 @@ def _unknown_target(cfg):
 
 def get_val_dataset(cfg, val_tf):
     """The val split only: an eval must not need the train tree."""
-    if cfg.DEEPLAB.dataset != "cityscapes":
-        raise _not_ported(f"dataset {cfg.DEEPLAB.dataset!r}")
+    if _check_dataset(cfg.DEEPLAB.dataset) == "voc":
+        return VOCSegmentation(cfg.DATASET.root_dataset, image_set="val",
+                               transform=val_tf)
     return Cityscapes(cfg.DATASET.root_dataset, split="val",
                       transform=val_tf, unknown_target=_unknown_target(cfg))
 
 
 def get_train_dataset(cfg, train_tf, split: str = "train"):
-    """``split`` of Cityscapes with the train transform, each sample's
-    draws seeded from DEEPLAB.random_seed, the epoch and its index."""
-    if cfg.DEEPLAB.dataset != "cityscapes":
-        raise _not_ported(f"dataset {cfg.DEEPLAB.dataset!r}")
+    """``split`` of Cityscapes (VOC: ``train_aug`` for ``train``; the
+    few-shot splits are Cityscapes') with the train transform, each
+    sample's draws seeded from DEEPLAB.random_seed, the epoch and its
+    index."""
+    if _check_dataset(cfg.DEEPLAB.dataset) == "voc":
+        if split != "train":
+            raise ValueError(f"split {split!r}: VOC trains on train_aug")
+        return VOCSegmentation(cfg.DATASET.root_dataset,
+                               image_set="train_aug", transform=train_tf,
+                               seed=cfg.DEEPLAB.random_seed)
     return Cityscapes(cfg.DATASET.root_dataset, split=split,
                       transform=train_tf, unknown_target=_unknown_target(cfg),
                       seed=cfg.DEEPLAB.random_seed)

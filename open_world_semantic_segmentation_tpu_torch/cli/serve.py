@@ -41,8 +41,10 @@ and ``/metrics`` lists them as they are done.
 
 ``--device-input`` ships the resized image as uint8 and normalises it on
 the device (``data/odgt.py device_normalize``). ``--artifact`` serves a
-saved export (``cli/export_model.py``). ``--quant`` keeps the JAX
-package's choices; any but ``off`` raises until ``ops/quant.py`` is ported.
+saved export (``cli/export_model.py``). ``--quant`` (int8, int8-hybrid,
+int8-3x3; ``ops/quant.py``) serves the int8 PTQ model, its activation
+scales calibrated at startup at the served size on the first 16 images
+``--calib-glob`` matches (sorted), or on white noise without the flag.
 The backbone's fused route is the Python keyword ``fused_blocks`` of
 ``serve`` and ``Segmenter``, with no CLI flag, as in ``cli/eval_ood.py``.
 
@@ -67,6 +69,7 @@ import torch
 
 from ._common import (
     build_anomaly_model,
+    calibrate_for_quant,
     compute_dtype,
     config_parser,
     init_or_load_variables,
@@ -78,13 +81,9 @@ QUANT_MODES = ("off", "int8", "int8-hybrid", "int8-3x3")
 
 
 def check_quant(quant: str):
-    """``--quant``: only ``off`` runs in the port so far."""
+    """``--quant``: the JAX server's and exporter's choices."""
     if quant not in QUANT_MODES:
         raise ValueError(f"--quant {quant!r}: choose from {QUANT_MODES}")
-    if quant != "off":
-        raise NotImplementedError(
-            f"--quant {quant}: int8 inference needs ops/quant.py, which is "
-            "not ported yet (ROADMAP.md, Queue 1 item 8)")
 
 
 class _Job:
@@ -105,11 +104,13 @@ class Segmenter:
                  max_batch: int = 1, batch_wait_ms: float = 5.0,
                  quant: str = "off", device_input: bool = False,
                  artifact: str = None, device=None,
-                 fused_blocks: bool = False):
+                 fused_blocks: bool = False, calib_glob: str = None):
         """``device_input``: ship the resized image as uint8 and normalise
         it on the device. ``artifact``: serve a saved export instead of
         building the model; input size and batch come from its metadata
-        (single-scale, method other than "none")."""
+        (single-scale, method other than "none"). ``quant``: an int8 PTQ
+        mode, calibrated at startup on the images ``calib_glob`` matches
+        (``cli/_common.py calibrate_for_quant``)."""
         from ..data import native
 
         check_quant(quant)
@@ -167,8 +168,12 @@ class Segmenter:
             self.size = (height, width)
             self.model = build_anomaly_model(cfg, self.device,
                                              fused_blocks=fused_blocks,
-                                             use_softmax=True)
+                                             use_softmax=True, quant=quant)
             init_or_load_variables(cfg, self.model)
+            if quant != "off":
+                calibrate_for_quant(cfg, self.model, self.size,
+                                    dtype=precision_dtype, use_softmax=True,
+                                    calib_glob=calib_glob, quant=quant)
             self.model_name = (f"{cfg.MODEL.arch_encoder}+"
                                f"{cfg.MODEL.arch_decoder}")
             dev = self.device.type
@@ -452,14 +457,14 @@ def make_handler(segmenter: Segmenter):
 def serve(cfg, precision_dtype, host="127.0.0.1", port=8501, height=720,
           width=1280, max_batch=1, batch_wait_ms=5.0, quant="off",
           device_input=False, artifact=None, device=None,
-          fused_blocks: bool = False):
+          fused_blocks: bool = False, calib_glob: str = None):
     """Build the ``Segmenter`` and its HTTP server (not yet serving: call
     ``serve_forever``). ``port=0`` takes a free port."""
     segmenter = Segmenter(cfg, precision_dtype, height, width,
                           max_batch=max_batch, batch_wait_ms=batch_wait_ms,
                           quant=quant, device_input=device_input,
                           artifact=artifact, device=device,
-                          fused_blocks=fused_blocks)
+                          fused_blocks=fused_blocks, calib_glob=calib_glob)
     server = ThreadingHTTPServer((host, port), make_handler(segmenter))
     server.segmenter = segmenter
     print(f"serving {segmenter.model_name} on "
@@ -481,8 +486,10 @@ def main(argv=None):
     parser.add_argument("--batch-wait-ms", type=float, default=5.0,
                         help="max time to wait for a batch to fill")
     parser.add_argument("--quant", choices=QUANT_MODES, default="off",
-                        help="int8 inference: not ported yet, any value "
-                             "but off raises")
+                        help="opt-in int8 PTQ inference (ops/quant.py)")
+    parser.add_argument("--calib-glob", default=None,
+                        help="glob of representative images for the int8 "
+                             "activation calibration")
     parser.add_argument("--device-input", action="store_true",
                         help="ship uint8 images and normalize on the "
                              "device")
@@ -495,7 +502,7 @@ def main(argv=None):
                    args.height, args.width, max_batch=args.max_batch,
                    batch_wait_ms=args.batch_wait_ms, quant=args.quant,
                    device_input=args.device_input, artifact=args.artifact,
-                   device=args.device)
+                   device=args.device, calib_glob=args.calib_glob)
     server.serve_forever()
 
 

@@ -15,7 +15,11 @@ A program runs on the device it was traced on: the metadata's
 it), and ``load_exported`` puts the program there. A bf16 artifact holds its
 forward inside ``torch.autocast``, as the eval runs it. The fused backbone
 route launches its kernel through ctypes, which ``torch.export`` cannot
-trace: export refuses a model with routed blocks.
+trace: export refuses a model with routed blocks. A prequantized int8
+model (``ops/quant.py``) exports as it is: its int8 weights become int8
+constants of the program, its ``amax`` / ``w_scale`` constants too, and
+its convs ``aten._int_mm`` on CUDA (a float64 conv of the integers on the
+CPU).
 
 Usage:
     blob = export_eval_fn(model, (720, 1280), dtype=torch.bfloat16)

@@ -14,6 +14,12 @@ blocks through the fused kernel (inference only): the ResNet-50/101
 families and HRNet's ``layer1``. An encoder without such blocks
 (``BasicBlock`` ResNets, ResNeXt, MobileNet) raises rather than run
 unfused.
+
+``quant`` (``ops/quant.py``): the int8 PTQ modes, inference only, wired as
+in the JAX package for the ResNet and ResNeXt encoders (``quant_stages``,
+0-based, default layers 2-4) and the PPM decoders; any other encoder or
+decoder, ``train=True`` or ``fused_blocks`` with a mode other than ``off``
+raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from .layers import BNConfig, init_module
 from .mobilenet import MobileNetV2Dilated
 from .resnet import resnet18, resnet34, resnet50, resnet101
 from .resnext import resnext101
+from ..ops.quant import check_quant
 
 # decoder BN bias of the reference's ModelBuilder.weights_init
 DECODER_BN_BIAS = 1e-4
@@ -92,15 +99,28 @@ class ModelBuilder:
     @staticmethod
     def build_encoder(arch="resnet50dilated", *,
                       bn: Optional[BNConfig] = None,
-                      fused_blocks: bool = False):
+                      fused_blocks: bool = False, quant: str = "off",
+                      quant_stages=None):
         arch = arch.lower()
         bn = bn or BNConfig()
+        qkw = {}
+        if check_quant(quant) != "off":
+            if not arch.startswith(("resnet", "resnext")):
+                raise ValueError(
+                    f"int8 quantization is wired for the ResNet/ResNeXt "
+                    f"families only (got {arch})")
+            if fused_blocks:
+                raise ValueError("fused_blocks with quant: the fused "
+                                 "bottleneck has no quantized form")
+            qkw["quant"] = quant
+            if quant_stages is not None:
+                qkw["quant_stages"] = tuple(quant_stages)
         if arch in _RESNETS:
             factory, output_stride = _RESNETS[arch]
             return factory(stem="deep", output_stride=output_stride, bn=bn,
-                           fused_blocks=fused_blocks)
+                           fused_blocks=fused_blocks, **qkw)
         if arch == "resnext101":
-            return resnext101(bn=bn, fused_blocks=fused_blocks)
+            return resnext101(bn=bn, fused_blocks=fused_blocks, **qkw)
         if arch == "hrnetv2":
             return hrnetv2(bn=bn, fused_blocks=fused_blocks)
         if arch == "mobilenetv2dilated":
@@ -113,13 +133,19 @@ class ModelBuilder:
     @staticmethod
     def build_decoder(arch="ppm_deepsup_embedding", fc_dim=2048,
                       num_class=13, use_softmax=False, *,
-                      bn: Optional[BNConfig] = None):
+                      bn: Optional[BNConfig] = None, quant: str = "off"):
         arch = arch.lower()
         if arch not in _DECODERS:
             raise ValueError(f"Architecture undefined: {arch}")
         cls, kw = _DECODERS[arch]
         if arch in _SOFTMAX_DECODERS:
             kw = {**kw, "use_softmax": use_softmax}
+        if check_quant(quant) != "off":
+            if not arch.startswith("ppm"):
+                raise ValueError(
+                    f"int8 quantization is wired for the PPM decoder "
+                    f"family only (got {arch})")
+            kw = {**kw, "quant": quant}
         return cls(num_class=num_class, fc_dim=fc_dim, bn=bn or BNConfig(),
                    **kw)
 
@@ -127,23 +153,33 @@ class ModelBuilder:
     def build_segmentation_model(arch_encoder, arch_decoder, num_class,
                                  fc_dim=None, use_softmax=False, *,
                                  bn: Optional[BNConfig] = None,
-                                 fused_blocks: bool = False):
+                                 fused_blocks: bool = False,
+                                 train: bool = False, quant: str = "off",
+                                 quant_stages=None):
         """The decoder is as wide as the encoder's output
         (``ENCODER_FC_DIM``): a torch decoder's first convs take that many
         channels, where flax reads them off the input, so an ``fc_dim`` that
         differs (a config's 2048 beside a 512-wide ResNet-18) cannot be
         honoured and gets a warning. ``fused_blocks``: route the encoder's
-        eligible bottlenecks through the fused kernel; off by default."""
+        eligible bottlenecks through the fused kernel; off by default.
+        ``train``: the model's mode (eval by default). ``quant``: "off", or
+        an int8 PTQ mode (``ops/quant.py``): build with "calib", run
+        ``ops.quant.calibrate`` over a few images, then prequantize the
+        model built with the eval's mode; inference only."""
+        if quant != "off" and train:
+            raise ValueError("int8 PTQ is an inference-only mode")
         encoder = ModelBuilder.build_encoder(arch_encoder, bn=bn,
-                                             fused_blocks=fused_blocks)
+                                             fused_blocks=fused_blocks,
+                                             quant=quant,
+                                             quant_stages=quant_stages)
         width = ModelBuilder.ENCODER_FC_DIM[arch_encoder.lower()]
         if fc_dim and fc_dim != width:
             warnings.warn(f"fc_dim {fc_dim}: {arch_encoder} is {width} "
                           f"wide; using {width}")
         fc_dim = width
         decoder = ModelBuilder.build_decoder(arch_decoder, fc_dim, num_class,
-                                             use_softmax, bn=bn)
-        return SegmentationModel(encoder, decoder)
+                                             use_softmax, bn=bn, quant=quant)
+        return SegmentationModel(encoder, decoder).train(train)
 
 
 def init_weights(model: SegmentationModel, generator: torch.Generator):

@@ -40,6 +40,15 @@ are fc_dim / 8, / 4, / 2 and fc_dim wide: 256-2048 for the ResNet-50
 family, 64-512 for ResNet-18); the JAX package reads them off its inputs.
 ``upernet_lite`` is ``fpn_dim`` 256, ``upernet`` 512.
 
+``quant`` (the PPM deep-supervision decoders and ``PPM``; ``ops/quant.py``)
+quantizes the pyramid branches and the fuse conv. The fuse conv runs
+concat-free under ``off`` and ``int8-hybrid``, where a prequantized int8
+weight's per-channel ``w_scale`` is applied after the conv (exact: the scale
+commutes with the conv's sums); under ``int8``, ``int8-3x3``, ``w4a8`` and
+``calib`` it runs over the materialised concat as a quantized ``ConvBN``
+conv, as in the JAX package's ``_PPMHead``. The 1x1 classifiers and the
+deep-supervision branch stay in float.
+
 Modules keep the reference's key names (``ppm.0.1.weight``,
 ``conv_last.0.weight``, ``conv_last.4.bias``, ``cbr_deepsup.0.weight``,
 ``conv_last_deepsup.weight``; ``cbr.0.weight``, ``conv_last.weight``;
@@ -53,7 +62,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .layers import BNConfig, Conv, ConvBN
+from .layers import BNConfig, Conv, ConvBN, QuantConv2d, make_conv
 from ..ops.distance import one_hot_center_logits
 from ..ops.pool import adaptive_avg_pool
 from ..ops.ppm_fuse import ppm_fuse_conv
@@ -114,10 +123,12 @@ class _PPMTrunk(nn.ModuleList):
     scale. Returns the pooled maps at their pyramid resolutions (k x k);
     the upsample + concat is left to the consumer."""
 
-    def __init__(self, fc_dim: int, pool_scales, bn: BNConfig):
+    def __init__(self, fc_dim: int, pool_scales, bn: BNConfig,
+                 quant: str = "off"):
         super().__init__(
             nn.Sequential(nn.AdaptiveAvgPool2d(scale),
-                          *ConvBN(fc_dim, PPM_CHANNELS, 1, bn=bn))
+                          *ConvBN(fc_dim, PPM_CHANNELS, 1, bn=bn,
+                                  quant=quant))
             for scale in pool_scales)
 
     def forward(self, conv5):
@@ -135,20 +146,31 @@ def _ppm_concat(conv5, pools):
 
 class _PPMHead(nn.Sequential):
     """conv_last: 3x3 conv-bn-relu (the fuse) -> dropout(0.1) -> 1x1 to
-    num_class. The fuse conv's weight is applied concat-free."""
+    num_class. The fuse conv's weight is applied concat-free under
+    ``off`` and ``int8-hybrid``, else over the concat (module note)."""
 
-    def __init__(self, in_channels: int, num_class: int, bn: BNConfig):
-        super().__init__(
-            nn.Conv2d(in_channels, PPM_CHANNELS, 3, padding=1, bias=False),
-            bn.make(PPM_CHANNELS),
-            nn.ReLU(inplace=True),
-            nn.Dropout(0.1),
-            Conv(PPM_CHANNELS, num_class))
+    def __init__(self, in_channels: int, num_class: int, bn: BNConfig,
+                 quant: str = "off"):
+        if quant == "int8-hybrid":
+            # the float dataflow, but a prequantized int8 weight and its
+            # w_scale may come in
+            fuse = QuantConv2d(in_channels, PPM_CHANNELS, 3, padding=1,
+                               bias=False, mode="off")
+        else:
+            fuse = make_conv(in_channels, PPM_CHANNELS, 3, padding=1,
+                             quant=quant)
+        super().__init__(fuse, bn.make(PPM_CHANNELS), nn.ReLU(inplace=True),
+                         nn.Dropout(0.1), Conv(PPM_CHANNELS, num_class))
+        self.concat_free = quant in ("off", "int8-hybrid")
 
     def forward(self, conv5, pools):
         fuse, bn, relu, drop, out = self
+        if not self.concat_free:
+            return out(drop(relu(bn(fuse(_ppm_concat(conv5, pools))))))
         y = ppm_fuse_conv(_nhwc(conv5), [_nhwc(p) for p in pools],
                           fuse.weight)
+        if fuse.weight.dtype == torch.int8:
+            y = y * fuse.w_scale
         y = relu(bn(y.to(conv5.dtype).permute(0, 3, 1, 2)))
         return out(drop(y))
 
@@ -158,11 +180,11 @@ class _PPMDeepsupBase(nn.Module):
     both decoders share (``_deepsup`` runs the branch)."""
 
     def __init__(self, num_class: int, fc_dim: int, pool_scales,
-                 bn: BNConfig):
+                 bn: BNConfig, quant: str = "off"):
         super().__init__()
-        self.ppm = _PPMTrunk(fc_dim, pool_scales, bn)
+        self.ppm = _PPMTrunk(fc_dim, pool_scales, bn, quant)
         self.conv_last = _PPMHead(fc_dim + len(pool_scales) * PPM_CHANNELS,
-                                  num_class, bn)
+                                  num_class, bn, quant)
         # deep supervision off conv4 (training only)
         self.cbr_deepsup = ConvBN(fc_dim // 2, fc_dim // 4, 3, padding=1,
                                   bn=bn)
@@ -179,8 +201,9 @@ class PPMDeepsup(_PPMDeepsupBase):
     ``ft`` (the features of reconstruction scoring)."""
 
     def __init__(self, num_class: int = 150, fc_dim: int = 4096,
-                 pool_scales=(1, 2, 3, 6), bn: BNConfig = BNConfig()):
-        super().__init__(num_class, fc_dim, pool_scales, bn)
+                 pool_scales=(1, 2, 3, 6), bn: BNConfig = BNConfig(),
+                 quant: str = "off"):
+        super().__init__(num_class, fc_dim, pool_scales, bn, quant)
 
     def forward(self, conv_out, seg_size=None, want_ft: bool = False):
         conv5 = conv_out[-1]
@@ -199,12 +222,12 @@ class PPM(nn.Module):
 
     def __init__(self, num_class: int = 150, fc_dim: int = 4096,
                  pool_scales=(1, 2, 3, 6), use_softmax: bool = False,
-                 bn: BNConfig = BNConfig()):
+                 bn: BNConfig = BNConfig(), quant: str = "off"):
         super().__init__()
         self.use_softmax = use_softmax
-        self.ppm = _PPMTrunk(fc_dim, pool_scales, bn)
+        self.ppm = _PPMTrunk(fc_dim, pool_scales, bn, quant)
         self.conv_last = _PPMHead(fc_dim + len(pool_scales) * PPM_CHANNELS,
-                                  num_class, bn)
+                                  num_class, bn, quant)
 
     def forward(self, conv_out, seg_size=None):
         conv5 = conv_out[-1]
@@ -219,8 +242,8 @@ class PPMDeepsupEmbedding(_PPMDeepsupBase):
 
     def __init__(self, num_class: int = 13, fc_dim: int = 4096,
                  pool_scales=(1, 2, 3, 6), magnitude: float = 3.0,
-                 bn: BNConfig = BNConfig()):
-        super().__init__(num_class, fc_dim, pool_scales, bn)
+                 bn: BNConfig = BNConfig(), quant: str = "off"):
+        super().__init__(num_class, fc_dim, pool_scales, bn, quant)
         self.magnitude = magnitude
 
     def forward(self, conv_out, seg_size=None, concat_ft: bool = False):

@@ -31,6 +31,18 @@ backbone across the base head ``classifier`` (16 classes) and novel heads
 ``classifier_1`` .. ``classifier_N`` of 16 + i classes, each a full V3+
 head with its own ASPP, and returns per-head lists.
 
+``quant`` (``ops/quant.py``) is taken by the three factories that take it
+in the JAX package: ``deeplabv3plus_resnet101``,
+``deeplabv3plus_embedding_resnet101`` and
+``deeplabv3plus_embedding_resnet50``; the others have no such keyword,
+so a call with one raises ``TypeError``. ``_split_quant`` maps a mode to (backbone, head): ``int8-hybrid``
+quantizes the backbone alone (``calib-hybrid`` calibrates it alone), every
+other mode both. In the head the ASPP's branches (but its image pool), its
+projection, the low-level projection and the 3x3 fuse conv quantize; the
+final 1x1 classifier stays in float. The ASPP computes its projection over
+the concat in every mode, so a quantized projection needs no other
+dataflow.
+
 Wrappers take an NHWC image batch, as the JAX package does (a contiguous
 NHWC batch viewed as NCHW is channels_last: no copy), run the modules in
 NCHW and return NHWC maps at the input size. The embedding wrapper returns
@@ -45,7 +57,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from .layers import BNConfig, ConvBN, init_module
+from .layers import BNConfig, ConvBN, init_module, make_conv
 from .mobilenet import mobilenet_v2
 from .resnet import resnet_deeplab
 from ..ops.distance import one_hot_center_logits
@@ -84,26 +96,30 @@ class ASPP(nn.Module):
 
     def __init__(self, in_channels: int, atrous_rates: Sequence[int] =
                  (6, 12, 18), out_channels: int = 256,
-                 bn: BNConfig = HEAD_BN, dilated_impl: str = "shift"):
+                 bn: BNConfig = HEAD_BN, dilated_impl: str = "shift",
+                 quant: str = "off"):
         super().__init__()
-        convs = [ConvBN(in_channels, out_channels, 1, bn=bn)]
+        convs = [ConvBN(in_channels, out_channels, 1, bn=bn, quant=quant)]
         convs += [ConvBN(in_channels, out_channels, 3, padding=r,
-                         dilation=r, bn=bn, dilated_impl=dilated_impl)
+                         dilation=r, bn=bn, dilated_impl=dilated_impl,
+                         quant=quant)
                   for r in atrous_rates]
         convs.append(ASPPPooling(in_channels, out_channels, bn))
         self.convs = nn.ModuleList(convs)
         self.project = nn.Sequential(
-            nn.Conv2d(len(convs) * out_channels, out_channels, 1,
-                      bias=False),
+            make_conv(len(convs) * out_channels, out_channels, 1,
+                      quant=quant),
             bn.make(out_channels), nn.ReLU(inplace=True), nn.Dropout(0.1))
 
     def forward(self, x):
         return self.project(torch.cat([conv(x) for conv in self.convs], 1))
 
 
-def _fuse_classifier(in_channels: int, num_classes: int, bn: BNConfig):
-    """3x3 fuse to 256, BN, ReLU, then the 1x1 classifier with a bias."""
-    return [nn.Conv2d(in_channels, 256, 3, padding=1, bias=False),
+def _fuse_classifier(in_channels: int, num_classes: int, bn: BNConfig,
+                     quant: str = "off"):
+    """3x3 fuse to 256, BN, ReLU, then the 1x1 classifier with a bias (in
+    float whatever ``quant`` says)."""
+    return [make_conv(in_channels, 256, 3, padding=1, quant=quant),
             bn.make(256), nn.ReLU(inplace=True),
             nn.Conv2d(256, num_classes, 1)]
 
@@ -114,13 +130,14 @@ class DeepLabHeadV3Plus(nn.Module):
 
     def __init__(self, in_channels: int, low_level_channels: int,
                  num_classes: int, aspp_dilate: Sequence[int] = (12, 24, 36),
-                 bn: BNConfig = HEAD_BN, dilated_impl: str = "shift"):
+                 bn: BNConfig = HEAD_BN, dilated_impl: str = "shift",
+                 quant: str = "off"):
         super().__init__()
-        self.project = ConvBN(low_level_channels, 48, 1, bn=bn)
+        self.project = ConvBN(low_level_channels, 48, 1, bn=bn, quant=quant)
         self.aspp = ASPP(in_channels, aspp_dilate, bn=bn,
-                         dilated_impl=dilated_impl)
+                         dilated_impl=dilated_impl, quant=quant)
         self.classifier = nn.Sequential(*_fuse_classifier(304, num_classes,
-                                                          bn))
+                                                          bn, quant))
 
     def forward(self, feature):
         low = self.project(feature["low_level"])
@@ -134,11 +151,13 @@ class DeepLabHead(nn.Module):
 
     def __init__(self, in_channels: int, num_classes: int,
                  aspp_dilate: Sequence[int] = (12, 24, 36),
-                 bn: BNConfig = HEAD_BN, dilated_impl: str = "shift"):
+                 bn: BNConfig = HEAD_BN, dilated_impl: str = "shift",
+                 quant: str = "off"):
         super().__init__()
         self.classifier = nn.Sequential(
-            ASPP(in_channels, aspp_dilate, bn=bn, dilated_impl=dilated_impl),
-            *_fuse_classifier(256, num_classes, bn))
+            ASPP(in_channels, aspp_dilate, bn=bn, dilated_impl=dilated_impl,
+                 quant=quant),
+            *_fuse_classifier(256, num_classes, bn, quant))
 
     def forward(self, feature):
         return self.classifier(feature["out"])
@@ -217,23 +236,38 @@ def _aspp_rates(output_stride: int) -> Tuple[int, int, int]:
     return (12, 24, 36) if output_stride == 8 else (6, 12, 18)
 
 
+def _split_quant(quant: str) -> Tuple[str, str]:
+    """A factory's ``quant`` -> (backbone mode, head mode): ``int8-hybrid``
+    is an int8 backbone under a float head, ``calib-hybrid`` its
+    calibration twin (the scales recorded in the backbone alone, so that
+    ``ops.quant.prequantize`` touches the backbone's weights alone)."""
+    if quant == "int8-hybrid":
+        return "int8", "off"
+    if quant == "calib-hybrid":
+        return "calib", "off"
+    return quant, quant
+
+
 def _v3plus(wrapper, depth, num_classes, output_stride, fused_blocks,
-            dilated_impl):
-    bb = resnet_deeplab(depth, output_stride, fused_blocks=fused_blocks)
+            dilated_impl, quant="off"):
+    bq, hq = _split_quant(quant)
+    bb = resnet_deeplab(depth, output_stride, fused_blocks=fused_blocks,
+                        quant=bq)
     head = DeepLabHeadV3Plus(2048, 256, num_classes,
                              _aspp_rates(output_stride),
-                             dilated_impl=dilated_impl)
+                             dilated_impl=dilated_impl, quant=hq)
     return wrapper(bb, head)
 
 
 # Every factory takes ``fused_blocks`` (the backbone's eligible
-# bottlenecks through the fused kernel, inference only) and
-# ``dilated_impl`` ("shift", the default, or "native" for the ASPP's
-# dilated convs).
+# bottlenecks through the fused kernel, inference only), ``dilated_impl``
+# ("shift", the default, or "native" for the ASPP's dilated convs); the
+# three with the JAX package's ``quant`` take it too (module note).
 def deeplabv3plus_resnet101(num_classes=21, output_stride=16, *,
-                            fused_blocks=False, dilated_impl="shift"):
+                            fused_blocks=False, dilated_impl="shift",
+                            quant="off"):
     return _v3plus(DeepLabV3Plus, 101, num_classes, output_stride,
-                   fused_blocks, dilated_impl)
+                   fused_blocks, dilated_impl, quant)
 
 
 def deeplabv3plus_resnet50(num_classes=21, output_stride=16, *,
@@ -252,18 +286,18 @@ def deeplabv3_resnet101(num_classes=21, output_stride=16, *,
 
 def deeplabv3plus_embedding_resnet101(num_classes=16, output_stride=16, *,
                                       fused_blocks=False,
-                                      dilated_impl="shift"):
+                                      dilated_impl="shift", quant="off"):
     return _v3plus(DeepLabV3PlusEmbedding, 101, num_classes, output_stride,
-                   fused_blocks, dilated_impl)
+                   fused_blocks, dilated_impl, quant)
 
 
 def deeplabv3plus_embedding_resnet50(num_classes=16, output_stride=16, *,
                                      fused_blocks=False,
-                                     dilated_impl="shift"):
+                                     dilated_impl="shift", quant="off"):
     """The embedding head on ResNet-50: the JAX package's API extension
     (the reference composes the embedding wrapper with ResNet-101)."""
     return _v3plus(DeepLabV3PlusEmbedding, 50, num_classes, output_stride,
-                   fused_blocks, dilated_impl)
+                   fused_blocks, dilated_impl, quant)
 
 
 def _mobilenet(wrapper, v3plus, num_classes, output_stride, fused_blocks,

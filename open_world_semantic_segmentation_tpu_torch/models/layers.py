@@ -12,6 +12,17 @@ through ``ops/dilated.py`` by default, as the JAX package's
 plain conv (the JAX package's ``OWSS_DILATED_IMPL=native``). Either way
 the conv is an ``nn.Conv2d`` with the same ``weight``.
 
+``quant`` (the JAX package's ``ConvBN`` modes, ``ops/quant.py``): ``off``
+(the float conv); ``calib`` records ``max|x|`` into the conv's ``amax``;
+``int8`` and ``w4a8`` run the exact ``s8 x s8 -> s32`` conv
+(``QuantConv2d``); ``int8-3x3`` is ``int8`` for every conv but the 1x1
+ones, which stay in float; ``int8-hybrid`` is ``int8`` here (the PPM
+decoder and the DeepLab factories resolve it further). A quantized conv is
+an ``nn.Conv2d`` with the same ``weight`` parameter, so the state dict's
+keys are the same in every mode; ``amax`` and ``w_scale`` are buffers the
+state dict leaves out. Under quant the shift-form dilated conv gives way
+to the int8 conv, as in the JAX package.
+
 Batch norm in training mode follows the JAX package (flax ``BatchNorm``),
 not ``torch.nn.BatchNorm2d``, where the two differ: the running variance
 takes in the biased batch variance (torch takes the unbiased one, n/(n-1)
@@ -28,6 +39,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.dilated import dilated_conv3x3_shift
+from ..ops.quant import (check_quant, int8_conv2d, quantize_act,
+                         quantize_weight, quantize_weight_int4)
 
 DILATED_IMPLS = ("shift", "native")
 
@@ -86,6 +99,93 @@ class ShiftDilatedConv2d(nn.Conv2d):
         return dilated_conv3x3_shift(x, self.weight, self.dilation)
 
 
+class QuantConv2d(nn.Conv2d):
+    """An ``nn.Conv2d`` (no bias) in one of the quantized modes ``calib``,
+    ``int8``, ``w4a8`` or ``off`` (the PPM fuse conv under ``int8-hybrid``,
+    which keeps its float dataflow but may hold an int8 weight).
+
+    ``calib`` runs the float conv and records ``max|x|`` (float32) into
+    ``amax`` (initially 0, so a conv no image reached stays visibly
+    uncalibrated). ``int8`` quantizes ``x`` with the static scale ``amax /
+    127`` and the weight per output channel, unless the weight is already
+    int8 (``ops.quant.prequantize``; its scale is ``w_scale``), runs the
+    exact int8 conv and dequantizes in float32: the result carries the
+    compute dtype (the autocast dtype under autocast, else ``x``'s).
+    ``w4a8`` quantizes the float weight to int4 values inline.
+
+    Loading a state dict whose weight is int8 (a prequantized checkpoint,
+    or the JAX package's tree through ``train/convert.py``) keeps it int8.
+    """
+
+    def __init__(self, *args, mode: str = "int8", **kwargs):
+        super().__init__(*args, **kwargs)
+        if mode not in ("off", "calib", "int8", "w4a8"):
+            raise ValueError(f"QuantConv2d mode {mode!r}")
+        self.mode = mode
+        self.register_buffer("amax", torch.zeros(()), persistent=False)
+        self.register_buffer("w_scale", None, persistent=False)
+
+    def forward(self, x):
+        if self.mode == "calib":
+            with torch.no_grad():
+                self.amax = torch.maximum(
+                    self.amax, x.detach().float().abs().amax())
+        if self.mode in ("calib", "off"):
+            return super().forward(x)
+        if self.training:
+            raise RuntimeError("int8 PTQ is an inference-only mode")
+        out_dtype = x.dtype
+        if torch.is_autocast_enabled(x.device.type):
+            out_dtype = torch.get_autocast_dtype(x.device.type)
+        x_q, s_x = quantize_act(x, self.amax)
+        if self.weight.dtype == torch.int8:
+            w_q, s_w = self.weight, self.w_scale
+        elif self.mode == "w4a8":
+            w_q, s_w = quantize_weight_int4(self.weight)
+        else:
+            w_q, s_w = quantize_weight(self.weight)
+        y = int8_conv2d(x_q, w_q, self.stride, self.padding, self.dilation,
+                        self.groups)
+        return (y.float() * (s_x * s_w)[:, None, None]).to(out_dtype)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        w = state_dict.get(prefix + "weight")
+        if w is not None and w.dtype == torch.int8:
+            self.weight = nn.Parameter(torch.empty_like(
+                w, device=self.weight.device), requires_grad=False)
+        return super()._load_from_state_dict(state_dict, prefix, *args,
+                                             **kwargs)
+
+
+def resolve_quant(quant: str, kernel_size: int) -> str:
+    """A conv's own mode under a model's ``quant``: ``int8-3x3`` leaves the
+    1x1 convs in float, ``int8-hybrid`` is ``int8`` at the conv."""
+    check_quant(quant)
+    if quant == "int8-3x3":
+        return "int8" if kernel_size != 1 else "off"
+    if quant == "int8-hybrid":
+        return "int8"
+    return quant
+
+
+def make_conv(in_channels: int, out_channels: int, kernel_size: int,
+              stride: int = 1, padding: int = 0, dilation: int = 1,
+              groups: int = 1, quant: str = "off",
+              dilated_impl: str = "shift") -> nn.Conv2d:
+    """The conv of a ``ConvBN`` (no bias): a ``QuantConv2d`` where the
+    conv's mode is quantized, else the shift form for an eligible dilated
+    conv, else ``nn.Conv2d``."""
+    mode = resolve_quant(quant, kernel_size)
+    if mode != "off":
+        return QuantConv2d(in_channels, out_channels, kernel_size, stride,
+                           padding, dilation, groups, bias=False, mode=mode)
+    conv = (ShiftDilatedConv2d if use_shift_dilated(
+        kernel_size, stride, padding, dilation, groups, dilated_impl)
+        else nn.Conv2d)
+    return conv(in_channels, out_channels, kernel_size, stride, padding,
+                dilation, groups, bias=False)
+
+
 def use_shift_dilated(kernel_size: int, stride: int, padding: int,
                       dilation: int, groups: int,
                       dilated_impl: str = "shift") -> bool:
@@ -100,17 +200,16 @@ def use_shift_dilated(kernel_size: int, stride: int, padding: int,
 
 class ConvBN(nn.Sequential):
     """Conv2d (no bias) + BatchNorm2d + optional ReLU, NCHW. An eligible
-    dilated conv takes the shift form unless ``dilated_impl="native"``."""
+    dilated conv takes the shift form unless ``dilated_impl="native"``;
+    ``quant`` as in the module note (``make_conv``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 0,
                  dilation: int = 1, groups: int = 1, relu: bool = True,
-                 bn: BNConfig = BNConfig(), dilated_impl: str = "shift"):
-        conv = (ShiftDilatedConv2d if use_shift_dilated(
-            kernel_size, stride, padding, dilation, groups, dilated_impl)
-            else nn.Conv2d)
-        layers = [conv(in_channels, out_channels, kernel_size, stride,
-                       padding, dilation, groups, bias=False),
+                 bn: BNConfig = BNConfig(), dilated_impl: str = "shift",
+                 quant: str = "off"):
+        layers = [make_conv(in_channels, out_channels, kernel_size, stride,
+                            padding, dilation, groups, quant, dilated_impl),
                   bn.make(out_channels)]
         if relu:
             layers.append(nn.ReLU(inplace=True))

@@ -23,6 +23,11 @@ block (conv1, conv2, conv3 with the skip, each with its bias, activation
 and rounding fused) instead of three convolutions, a skip and two
 activations. It is off by default; the choice per block is made once, at
 construction.
+
+``quant`` (``models/layers.py``, ``ops/quant.py``) quantizes the blocks of
+``quant_stages`` (0-based; default 1-3, so the stem and layer1 stay in
+float, as in the JAX package); it refuses ``fused_blocks``, since the JAX
+package has no quantized fused block.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from .layers import BNConfig, ConvBN
+from .layers import BNConfig, ConvBN, make_conv
 from ..ops.fused_block import fold_convbn, fused_block_tile, fused_bottleneck
 from ..ops.pool import max_pool_3x3_s2_p1
 
@@ -43,18 +48,18 @@ class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, first_dilation: int = 1,
                  downsample: bool = False, bn: BNConfig = BNConfig(),
-                 groups: int = 1, base_width: int = 64):
+                 groups: int = 1, base_width: int = 64, quant: str = "off"):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride,
-                               padding=first_dilation,
-                               dilation=first_dilation, bias=False)
+        self.conv1 = make_conv(inplanes, planes, 3, stride, first_dilation,
+                               first_dilation, quant=quant)
         self.bn1 = bn.make(planes)
         self.relu = nn.ReLU(inplace=True)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=dilation,
-                               dilation=dilation, bias=False)
+        self.conv2 = make_conv(planes, planes, 3, 1, dilation, dilation,
+                               quant=quant)
         self.bn2 = bn.make(planes)
         self.downsample = (ConvBN(inplanes, planes, 1, stride, relu=False,
-                                  bn=bn) if downsample else None)
+                                  bn=bn, quant=quant)
+                           if downsample else None)
 
     def forward(self, x):
         out = self.relu(self.bn1(self.conv1(x)))
@@ -69,23 +74,23 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, first_dilation: int = 1,
                  downsample: bool = False, bn: BNConfig = BNConfig(),
-                 groups: int = 1, base_width: int = 64, fused: bool = False):
+                 groups: int = 1, base_width: int = 64, fused: bool = False,
+                 quant: str = "off"):
         super().__init__()
         width = self.width(planes, groups, base_width)
         out_ch = planes * self.expansion
-        self.conv1 = nn.Conv2d(inplanes, width, 1, bias=False)
+        self.conv1 = make_conv(inplanes, width, 1, quant=quant)
         self.bn1 = bn.make(width)
         # the 3x3 carries stride and dilation (torch Bottleneck layout)
-        self.conv2 = nn.Conv2d(width, width, 3, stride,
-                               padding=first_dilation,
-                               dilation=first_dilation, groups=groups,
-                               bias=False)
+        self.conv2 = make_conv(width, width, 3, stride, first_dilation,
+                               first_dilation, groups, quant=quant)
         self.bn2 = bn.make(width)
-        self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False)
+        self.conv3 = make_conv(width, out_ch, 1, quant=quant)
         self.bn3 = bn.make(out_ch)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (ConvBN(inplanes, out_ch, 1, stride,
-                                  relu=False, bn=bn) if downsample else None)
+                                  relu=False, bn=bn, quant=quant)
+                           if downsample else None)
         # the fused route's tile, or None where the block stays unfused
         self.fused_tile = None
         if fused and stride == 1 and groups == 1:
@@ -183,8 +188,12 @@ class ResNet(nn.Module):
                  stem: str = "deep", output_stride: int = 8,
                  bn: BNConfig = BNConfig(), groups: int = 1,
                  base_width: int = 64, planes=(64, 128, 256, 512),
-                 fused_blocks: bool = False):
+                 fused_blocks: bool = False, quant: str = "off",
+                 quant_stages: Sequence[int] = (1, 2, 3)):
         super().__init__()
+        if fused_blocks and quant != "off":
+            raise ValueError("fused_blocks with quant: the fused bottleneck "
+                             "has no quantized form")
         if fused_blocks and block is not Bottleneck:
             raise ValueError(f"fused_blocks routes Bottleneck blocks only, "
                              f"not {block.__name__}")
@@ -223,7 +232,9 @@ class ResNet(nn.Module):
                     first_dilation=prev_dilation if is_first else dilation,
                     downsample=is_first and (stride != 1
                                              or inplanes != out_ch),
-                    bn=bn, groups=groups, base_width=base_width, **fused))
+                    bn=bn, groups=groups, base_width=base_width,
+                    quant=quant if stage in quant_stages else "off",
+                    **fused))
                 inplanes = out_ch
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
             prev_dilation = dilation

@@ -22,9 +22,9 @@ class GroupBottleneck(Bottleneck):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, first_dilation: int = 1,
                  downsample: bool = False, bn: BNConfig = BNConfig(),
-                 groups: int = 32, base_width: int = 64):
+                 groups: int = 32, base_width: int = 64, quant: str = "off"):
         super().__init__(inplanes, planes, stride, dilation, first_dilation,
-                         downsample, bn, groups, base_width)
+                         downsample, bn, groups, base_width, quant=quant)
 
     @staticmethod
     def width(planes: int, groups: int, base_width: int) -> int:

@@ -1,2 +1,2 @@
 """Tensor ops of the port: resize, pooling, distance heads, the concat-free
-PPM fuse conv and the knn-cosine kernel."""
+PPM fuse conv, the knn-cosine kernel and the int8 PTQ (``quant.py``)."""

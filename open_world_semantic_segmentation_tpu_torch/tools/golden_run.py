@@ -24,7 +24,14 @@ with ``cli/main_deeplab.main``, extracts k-shot car prototypes with
 ``cli/eval_embedding.main``, then again with no override
 (``FEWSHOT.npm_dis_threshold`` 1e9): the novel class (car, id 16) IoU with
 the prototype override against the base head alone, which cannot predict
-16. In float32 both run with TF32 off.
+16. In float32 both run with TF32 off. Its training runs under
+``torch.use_deterministic_algorithms(True)`` (``deterministic``): every op
+of the DeepLab train step then has a deterministic CUDA form (the
+interpolation-matrix resize of ``ops/resize.py``, cuDNN's deterministic
+convolution algorithms), so a seed gives the same weights on every run.
+cuBLAS needs ``CUBLAS_WORKSPACE_CONFIG`` set before its first call for
+that: ``main`` sets it, and a caller that imports this module sets it
+itself (``chip_smoke.py`` does, at its top).
 
 Every run is on ``device`` (cuda unless the caller asks for the CPU). The
 repo's ``tools/`` directory must sit beside the package (a checkout).
@@ -90,6 +97,18 @@ def exact_fp32():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)``, restored after. An op
+    without a deterministic CUDA form raises inside."""
+    saved = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved)
 
 
 def _eval(cfg, method, dtype, device, **kw):
@@ -214,8 +233,9 @@ def run_cityscapes(model="deeplabv3plus_embedding_resnet50", steps=400,
     with (exact_fp32() if precision == torch.float32
           else contextlib.nullcontext()):
         tic = time.perf_counter()
-        trained = main_deeplab.main(cfg, precision, max_steps=steps,
-                                    device=device)
+        with deterministic():
+            trained = main_deeplab.main(cfg, precision, max_steps=steps,
+                                        device=device)
         seconds = time.perf_counter() - tic
         cfg.MODEL.weights_encoder = os.path.join(cfg.DIR, "best.pth")
         protos = extract_prototypes.main(cfg, precision, split="train",
@@ -280,6 +300,8 @@ def main(argv=None):
                     help="torch device (default cuda; cpu must be asked "
                          "for)")
     args = ap.parse_args(argv)
+    # cuBLAS reads it at its first call: the deterministic DeepLab training
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
     if args.task == "cityscapes":
         return run_cityscapes(

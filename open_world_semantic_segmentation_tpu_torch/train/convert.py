@@ -28,6 +28,14 @@ UPerNet (``_translate_upernet_key``), told apart by UPerNet's
 becomes ``backbone.low_level_features`` / ``high_level_features``
 (``_translate_mobilenet_key``) in the layout of its ``style``.
 
+A quantized tree carries across too (``ops/quant.py``): an int8 or int4
+kernel of a prequantized tree becomes an int8 weight (``QuantConv2d``
+keeps it int8 when it loads), and ``quant_state_from_jax`` /
+``deeplab_quant_state_from_jax`` turn the ``quant`` collection (``amax``
+and ``w_scale``, kept by the JAX package at the ``ConvBN`` or ``PPMFuse``
+beside its ``conv``) into the state ``ops.quant.load_quant_state`` takes,
+keyed by the torch conv's module name.
+
 The reference's own ``encoder_epoch_*.pth`` / ``decoder_epoch_*.pth`` and
 DeepLab ``model_state`` need no conversion: they load into the port with
 ``load_state_dict``.
@@ -210,7 +218,9 @@ def _convert_part(params, batch_stats, rules) -> Dict[str, torch.Tensor]:
             module_path, leaf = path.rsplit("/", 1)
             prefix = _torch_prefix(module_path, rules)
             arr = np.asarray(value)
-            if arr.dtype != np.float64:     # float64 stays (tests' trees)
+            if arr.dtype.kind in "iu" or "int" in str(arr.dtype):
+                arr = arr.astype(np.int8)   # a prequantized int8/int4 kernel
+            elif arr.dtype != np.float64:   # float64 stays (tests' trees)
                 arr = arr.astype(np.float32)
             if leaf == "kernel":
                 arr = np.transpose(arr, (3, 2, 0, 1))   # HWIO -> OIHW
@@ -242,6 +252,55 @@ def state_dict_from_jax(variables) -> Tuple[Dict[str, torch.Tensor],
                         _UPERNET_RULES if "conv_fusion" in params["decoder"]
                         else _DECODER_RULES)
     return enc, dec
+
+
+def _quant_part(tree, rules, prefix: str):
+    """The ``quant`` entries under one flax module tree -> {torch conv
+    name: {"amax", "w_scale"}}; an entry sits at the module whose ``conv``
+    the rules map."""
+    state = {}
+    for path, value in _flatten(tree):
+        module_path, leaf = path.rsplit("/", 1)
+        name = prefix + _torch_prefix(module_path + "/conv", rules)
+        state.setdefault(name, {})[leaf] = torch.tensor(
+            np.asarray(value, np.float32))
+    return state
+
+
+def quant_state_from_jax(variables) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The ``quant`` collection of a JAX ``SegmentationModel`` -> the
+    port's quant state (``ops.quant.load_quant_state``), names from the
+    model's root (``encoder.layer2.0.conv1``, ``decoder.conv_last.0``)."""
+    params, quant = variables["params"], variables.get("quant", {})
+    state = {}
+    if "encoder" in quant:
+        state.update(_quant_part(quant["encoder"],
+                                 _encoder_rules(params["encoder"]),
+                                 "encoder."))
+    if "decoder" in quant:
+        state.update(_quant_part(
+            quant["decoder"], _UPERNET_RULES if "conv_fusion" in
+            params["decoder"] else _DECODER_RULES, "decoder."))
+    return state
+
+
+def deeplab_quant_state_from_jax(variables
+                                 ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The ``quant`` collection of a JAX DeepLab model -> the port's quant
+    state, names from the model's root (``backbone.layer2.0.conv1``,
+    ``classifier.aspp.convs.1.0``)."""
+    params, quant = variables["params"], variables.get("quant", {})
+    state = {}
+    for name, tree in quant.items():
+        if name == "backbone":
+            rules, prefix = _encoder_rules(params["backbone"], True), \
+                "backbone."
+        else:
+            rules = (_DEEPLAB_V3PLUS_RULES if "project" in params[name]
+                     else _DEEPLAB_V3_RULES)
+            prefix = "classifier." if name == "head" else name + "."
+        state.update(_quant_part(tree, rules, prefix))
+    return state
 
 
 def deeplab_state_dict_from_jax(variables, mobilenet_style="torchvision"

@@ -110,13 +110,13 @@ def deeplab_cross_entropy(logits, labels, features_in=None, *,
         idx = torch.where(member, labels.reshape(b, -1), 0).long()
         w = member.to(f.dtype)
         flat = f.reshape(b, -1, c)
-        sums = torch.zeros(b, k, c, dtype=f.dtype, device=f.device)
-        sums.scatter_add_(1, idx[..., None].expand(-1, -1, c),
-                          flat * w[..., None])
-        counts = torch.zeros(b, k, dtype=f.dtype, device=f.device)
-        counts.scatter_add_(1, idx, w)
+        # class sums and counts as one-hot products, where a scatter_add_
+        # adds with atomics on CUDA in an order that changes between runs
+        onehot = torch.nn.functional.one_hot(idx, k).to(f.dtype)
+        sums = (onehot * w[..., None]).transpose(1, 2) @ flat
+        counts = (onehot * w[..., None]).sum(1)
         means = sums / counts.clamp(min=1.0)[..., None]
-        own = means.gather(1, idx[..., None].expand(-1, -1, c))
+        own = onehot @ means            # each pixel's class mean, exactly
         center = ((((flat - own) ** 2).sum(-1) * w).sum(1) / hw).sum()
 
     return (ce + alpha * var + beta * inter + gamma * center) / n

@@ -22,8 +22,22 @@ unfused and on the fused route, and an exported artifact against the
 direct forward of the same model at the same batch size, fp32 with TF32
 off: labels equal on 99 % of pixels, float16 conf maps within 2e-3 of
 their largest magnitude (at least of 1) with their NaNs in the same
-places.
+places. The int8 conv's tap form (``torch._int_mm``) on cuda equals its
+plain version (a float64 conv of the integers) exactly, and so does one
+quantized conv (int8 and w4a8, inline and prequantized) on cuda and on
+the CPU, given the same input. A prequantized int8 model's forward on
+cuda holds to the same model on the CPU (fp32, TF32 off): argmax equal on
+99 % of pixels, scores within 5e-2 of the largest. The int8 convs are
+exact on both; the float layers between them sum in another order, and an
+activation that lands within that rounding of a step of the int8 grid
+rounds the other way, one step of ``amax / 127``, which the layers after
+carry (1.75e-2 of the largest score seen on an H100 for int8). Two runs of 10 DeepLab train
+steps at one seed under ``torch.use_deterministic_algorithms(True)`` give
+bit-identical weights (cuBLAS needs ``CUBLAS_WORKSPACE_CONFIG``, set below
+before its first call).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -51,6 +65,9 @@ from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
 from open_world_semantic_segmentation_tpu_torch.ops.knn import (
     knn_cosine, knn_cosine_plain, knn_neighbour_counts)
 
+# before cuBLAS's first call (importing torch makes none): the
+# deterministic DeepLab training below
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 ATOL = 2e-5
 
 
@@ -639,3 +656,168 @@ def test_zoo_fused_route_on_cuda_matches_unfused(cuda, no_tf32, encoder,
     got = _zoo_scores(encoder, decoder, "cuda", x, fused_blocks=True)
     assert fused_bottleneck.launches == routed
     _close(got, _zoo_scores(encoder, decoder, "cuda", x))
+
+
+# (N, Cin, H, W, Cout, kernel, stride, padding, dilation, groups): the
+# eval's shapes are in chip_smoke.py; these take every branch of the tap
+# form (K and N padded to 8, rows to 17, taps wholly in the padding)
+INT8_CONVS = [(1, 3, 33, 47, 64, 3, 2, 1, 1, 1),
+              (2, 64, 20, 24, 64, 3, 1, 1, 1, 32),
+              (1, 8, 9, 9, 32, 1, 1, 0, 1, 1),
+              (1, 24, 5, 5, 100, 3, 1, 1, 1, 1),
+              (1, 512, 1, 1, 512, 1, 1, 0, 1, 1),
+              (1, 256, 9, 14, 100, 3, 1, 12, 12, 1),
+              (2, 128, 31, 29, 256, 3, 2, 1, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", INT8_CONVS)
+def test_int8_conv_taps_match_plain_on_cuda(cuda, geom):
+    from open_world_semantic_segmentation_tpu_torch.ops import quant
+
+    n, cin, h, w, cout, k, s, p, d, g = geom
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randint(-127, 128, (n, cin, h, w), dtype=torch.int8,
+                      device=cuda, generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    wq = torch.randint(-127, 128, (cout, cin // g, k, k), dtype=torch.int8,
+                       device=cuda, generator=gen)
+    before = quant.int8_conv2d.calls
+    got = quant.int8_conv2d(x, wq, s, p, d, g)
+    assert quant.int8_conv2d.calls == before + 1
+    want = quant.int8_conv2d_plain(x, wq, s, p, d, g)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prequantized", [False, True])
+@pytest.mark.parametrize("mode", ["int8", "w4a8"])
+def test_quant_conv_on_cuda_equals_cpu(cuda, mode, prequantized):
+    """One quantized conv on the same float32 input and scale: the int8
+    activations, the int32 sums and the float32 dequantization are the
+    same operations on both devices, so the outputs are bit-equal."""
+    from open_world_semantic_segmentation_tpu_torch.models.layers import (
+        QuantConv2d)
+    from open_world_semantic_segmentation_tpu_torch.ops import quant
+
+    torch.manual_seed(0)
+    conv = QuantConv2d(64, 96, 3, 2, 2, 2, bias=False, mode=mode).eval()
+    x = torch.randn(2, 64, 21, 30)
+    conv.amax = x.abs().amax() * 0.9          # some activations saturate
+    if prequantized:
+        quant.prequantize(conv, {"": {"amax": conv.amax}},
+                          mode="w4a8" if mode == "w4a8" else "int8")
+    with torch.no_grad():
+        want = conv(x)
+        got = conv.to(cuda)(x.to(cuda)).cpu()
+    assert torch.equal(got, want)
+
+
+def _quant_twin(mode):
+    """resnet18dilated + ppm_deepsup_embedding in ``mode``, seeded, and
+    the scales its ``calib`` twin records on two images on the CPU."""
+    from open_world_semantic_segmentation_tpu_torch.models.builder import (
+        ModelBuilder)
+    from open_world_semantic_segmentation_tpu_torch.ops import quant
+
+    def build(q):
+        m = ModelBuilder.build_segmentation_model(
+            "resnet18dilated", "ppm_deepsup_embedding", 13, quant=q)
+        init_weights(m, torch.Generator().manual_seed(0))
+        return m
+
+    imgs = [np.random.default_rng(i).standard_normal(
+        (1, 64, 96, 3)).astype(np.float32) for i in range(2)]
+    state = quant.calibrate(build("calib"), imgs, seg_size=(64, 96))
+    return build, state, torch.from_numpy(imgs[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "int8-hybrid", "w4a8"])
+def test_quantized_model_on_cuda_matches_cpu(cuda, no_tf32, mode):
+    """The model prepared as the eval prepares it (prequantized; ``w4a8``
+    given its scales alone, its weights quantized inline) on cuda against
+    the CPU: argmax on 99 % of pixels, scores within 5e-2 (an activation
+    on a rounding boundary of the int8 grid may round the other way after
+    the float layers, which sum in another order on each device)."""
+    from open_world_semantic_segmentation_tpu_torch.ops import quant
+
+    build, state, x = _quant_twin(mode)
+    scores = {}
+    for device in ("cpu", "cuda"):
+        model = quant.apply_quant_state(build(mode).to(device), state, mode)
+        before = quant.int8_conv2d.calls
+        with torch.no_grad():
+            scores[device] = model(x.to(device), seg_size=(64, 96))[
+                "scores"].cpu()
+        assert (quant.int8_conv2d.calls > before) == (device == "cuda")
+    agree = (scores["cuda"].argmax(-1) == scores["cpu"].argmax(-1)).float()
+    assert float(agree.mean()) >= 0.99
+    _close(scores["cuda"], scores["cpu"], rtol=5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "int8-hybrid", "w4a8"])
+def test_quantized_convs_on_cuda_equal_cpu(cuda, no_tf32, mode):
+    """Every quantized conv of the whole model's forward on cuda, given on
+    the CPU the input it saw on the card, gives the card's output bit for
+    bit: where the two devices' forwards differ, the float layers between
+    the quantized convs made the difference."""
+    from open_world_semantic_segmentation_tpu_torch.models.layers import (
+        QuantConv2d)
+    from open_world_semantic_segmentation_tpu_torch.ops import quant
+
+    build, state, x = _quant_twin(mode)
+    on_cpu = quant.apply_quant_state(build(mode), state, mode)
+    on_cuda = quant.apply_quant_state(build(mode).to(cuda), state, mode)
+    seen = []
+
+    def record(name):
+        def hook(_, args, out):
+            seen.append((name, args[0].detach().cpu(), out.detach().cpu()))
+        return hook
+
+    for name, m in on_cuda.named_modules():
+        if isinstance(m, QuantConv2d) and m.mode != "off":
+            m.register_forward_hook(record(name))
+    with torch.no_grad():
+        on_cuda(x.to(cuda), seg_size=(64, 96))
+        assert len(seen) > 10
+        for name, inp, out in seen:
+            assert torch.equal(on_cpu.get_submodule(name)(inp), out), name
+
+
+@pytest.mark.cuda
+def test_deeplab_training_is_deterministic(cuda, no_tf32, tmp_path):
+    """The Cityscapes golden recipe's model and data (crop 128, batch 4,
+    fp32), 10 steps twice from one seed under the golden run's
+    ``deterministic``: every parameter and BN statistic bit-identical."""
+    from open_world_semantic_segmentation_tpu_torch.cli import main_deeplab
+    from open_world_semantic_segmentation_tpu_torch.core.config import (
+        default_config)
+    from open_world_semantic_segmentation_tpu_torch.tools import golden_run
+
+    root = str(tmp_path / "cs")
+    golden_run._synthetic_data().make_cityscapes_learnable(
+        root, splits=("train", "val"), n=8, h=128, w=256, seed=0)
+    states = []
+    for run in range(2):
+        cfg = default_config()
+        cfg.DIR = str(tmp_path / f"ckpt{run}")
+        cfg.DATASET.root_dataset = root
+        cfg.DEEPLAB.model = "deeplabv3plus_embedding_resnet101"
+        cfg.DEEPLAB.num_classes = 16
+        cfg.DEEPLAB.crop_size = 128
+        cfg.DEEPLAB.batch_size = 4
+        cfg.DEEPLAB.lr = 0.05
+        cfg.DEEPLAB.total_itrs = 10
+        cfg.DEEPLAB.val_interval = 10
+        cfg.DEEPLAB.random_seed = 0
+        with golden_run.deterministic():
+            main_deeplab.main(cfg, torch.float32, device="cuda")
+        states.append(torch.load(os.path.join(cfg.DIR, "latest.pth"),
+                                 map_location="cpu")["model_state"])
+    assert states[0].keys() == states[1].keys()
+    for key in states[0]:
+        assert torch.equal(states[0][key], states[1][key]), key

@@ -327,9 +327,15 @@ def test_malformed_image_is_a_400_and_counted(port_server):
 
 
 @pytest.mark.parametrize("quant", ["int8", "int8-hybrid", "int8-3x3"])
-def test_quant_raises(cfg, quant):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+def test_quant_raises(cfg, quant, tmp_path):
+    """Every int8 mode serves (``test_torch_quant_serve.py``), but refuses
+    to calibrate on white noise when --calib-glob matches no file; an
+    unknown mode raises, as the JAX server's argument parser does."""
+    with pytest.raises(FileNotFoundError, match="matched no files"):
         serve.Segmenter(cfg, torch.float32, *SIZE, quant=quant,
+                        device="cpu", calib_glob=str(tmp_path / "x*.png"))
+    with pytest.raises(ValueError, match="choose from"):
+        serve.Segmenter(cfg, torch.float32, *SIZE, quant=quant + "x",
                         device="cpu")
 
 
