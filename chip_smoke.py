@@ -7,8 +7,9 @@ the Cityscapes NPM few-shot eval (with score calibration, result PNGs and
 Fishyscapes Lost&Found), the live video demo, DeepLab training and the
 incremental few-shot fine-tuning (FT / PLM self-distillation,
 teacher-student distillation), a golden convergence run, every other
-encoder and decoder of the CSAIL model zoo, the int8 PTQ surface and
-DeepLab training on PASCAL VOC, end to end.
+encoder and decoder of the CSAIL model zoo, the int8 PTQ surface,
+DeepLab training on PASCAL VOC, and data-parallel training over ranks with
+the profiler hooks, end to end.
 
     python3 chip_smoke.py
 
@@ -246,7 +247,42 @@ Phases (any failure exits non-zero and prints no result):
    synthetic VOCdevkit (16 train_aug images and 4 val of 375x500,
    500x375, 333x500, 500x333): deeplabv3plus_mobilenet, 21 classes, crop
    513, batch 8, bf16, 6 steps, then the val pass one image per batch:
-   s/step, loader wait s/step, finite losses and mIoU.
+   s/step, loader wait s/step, finite losses and mIoU;
+12. ddp phase (``parallel/``, data-parallel training; one card, so two
+   ranks share device 0 over gloo, which takes CUDA tensors through host
+   copies, and NCCL runs as a one-rank group): this script's own 2-rank
+   job (``--ddp-worker``, a ``file://`` store, each rank writing its
+   results before any teardown; the job is killed after 300 s) beside the
+   same work in this process on the whole batch: three AnomalyTrainSteps
+   of the full-width resnet50dilated + ppm_deepsup_embedding from the
+   slice phase's weights on a fixed global batch of 4 320x384 images
+   (labels at 1/8, each rank ignoring another share), dropout held out,
+   in float64 (losses within 1e-7; the distance from one process, over
+   the change the steps made, at most 4 times that of one process on the
+   batch in reverse order) and in fp32 with TF32 off (the 2-rank run's
+   distance from float64 at most 4 times the one-process run's), every
+   rank bit-identical; a BN of a bf16 input over the ranks under bf16
+   autocast returns bf16 within 5e-2 of one process's; the car
+   prototype of 2 support images a rank (their shards of the deeplab
+   phase's tree) through the DeepLab embedding model with
+   ``fused_blocks=True`` in fp32, summed over the ranks, within 1e-4 of
+   one process's on the 4 (valid alike; 31 block calls and 93 kernel
+   launches a rank, counted); then ``cli.train_embedding`` under ``python
+   -m torch.distributed.run``: 2 ranks over gloo at the config's batch of
+   8 a rank (short sides cut to 300 and 375, long side to 600), timed
+   alone, and one rank over NCCL (run beside the rank job above), 4 fp32
+   steps each, only rank 0 printing and writing ``metrics.jsonl`` and the
+   checkpoint, the ranks' weights checked bit-identical by the entry
+   point, the 2-rank s/step beside two plain runs in this process (timed
+   alone), the NCCL run's first loss equal to the plain run's and its
+   weights within 4 times the plain runs' own distance;
+   ``cli.main_deeplab`` under ``torch.distributed.run`` with 2 ranks
+   (gloo, bf16, batch 4 a rank at crop 768, the config's 8 in all; run
+   beside the rank job) for 2 steps from the deeplab phase's checkpoint, rank 0 alone validating and writing ``latest.pth``
+   and ``best.pth``; and ``utils/observability.py profile_trace`` around
+   one fused 568x1000 StreetHazards forward (bf16): the trace names the
+   fused kernel (``phase_kernel`` of ``csrc/fused_bottleneck.cu``) 45
+   times, 3 per routed block, and the ``annotate`` region.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.
@@ -259,6 +295,7 @@ import faulthandler
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -588,6 +625,47 @@ VOC_VAL_IMAGES = 4
 VOC_STEPS = 6
 VOC_BATCH = 8
 VOC_CROP = 513
+# the ddp phase: data-parallel training over ranks of one card (gloo on
+# CUDA tensors; NCCL refuses two ranks on one device) and one-rank NCCL
+DDP_WORLD = 2
+DDP_PARITY_BATCH = 2            # per rank; one process takes the 4
+DDP_PARITY_SIZE = (320, 384)    # the step parity's images (labels at 1/8)
+DDP_PARITY_STEPS = 3
+DDP_IGNORE_SHARE = (0.1, 0.6)   # ignored labels per rank: uneven
+# 2 ranks against 1 process in float64: the losses within this; and the
+# norm of the difference of all the tensors over the norm of the change
+# the 3 steps made, held to a noise floor, as fp32 is below: at most
+# DDP_F64_NOISE_RATIO times that of one process on the same batch in
+# reverse order (the same sums in another order) plus DDP_F64_FLOOR. The
+# network amplifies rounding: on the slice phase's data-started weights a
+# fixed bound of 1e-5 of each tensor's change failed (1.3e-3, norm
+# 2.7e-6), where random weights gave 4.1e-8 on the card (my chip runs)
+DDP_F64_LOSS_RTOL = 1e-7
+DDP_F64_NOISE_RATIO = 4.0
+DDP_F64_FLOOR = 1e-8
+# in fp32 (TF32 off) the network amplifies rounding until a small tensor's
+# difference passes its change (one process, fp32 against float64, on the
+# CPU at random weights), so an fp32 run is held to a noise floor: the
+# norm of the difference of all its tensors over the norm of the change,
+# at most this many times the floor plus DDP_F32_FLOOR
+DDP_F32_NOISE_RATIO = 4.0
+DDP_F32_FLOOR = 1e-6
+# the one-rank NCCL run against the plain one (fp32, the same weights and
+# batches): the first loss, before any update, equal within this; the
+# weights held as above to the floor of two plain runs (cuDNN's backward
+# sums in a varying order)
+DDP_NCCL_LOSS_RTOL = 1e-6
+DDP_BN_DTYPE_ATOL = 5e-2        # a bf16 BN output against one process's
+DDP_CLI_STEPS = 4               # train_embedding under torch.distributed.run
+DDP_CLI_SIZES = "(300, 375)"    # short sides, cut from the config's 300-600
+DDP_CLI_MAX_SIZE = "600"        # long side, cut from 1000
+DDP_DEEPLAB_STEPS = 2           # main_deeplab under torch.distributed.run,
+DDP_DEEPLAB_BATCH = 4           # a rank: the config's 8 over the 2 ranks
+DDP_SUPPORT_PER_RANK = 2        # support images a rank extracts from
+DDP_PROTO_RTOL = 1e-4           # the prototype, 2 ranks against 1 process
+DDP_RANK_TIMEOUT_S = 300        # a rank job that has not ended fails the run
+DDP_PROFILED_SIZE = (568, 1000)  # the pyramid's largest level
+DDP_PROFILED_BLOCKS = 15        # resnet50dilated's routed blocks
 # a served request or stream that has not answered in this many seconds
 # fails the run instead of holding it to the chip's time limit
 SERVE_TIMEOUT_S = 120
@@ -4540,13 +4618,654 @@ def voc_phase(root):
     return summary
 
 
+# ---------------------------------------------------------------------------
+def _ddp_parity_inputs():
+    """The fixed global batch of the step parity: seeded images and labels
+    at 1/8, each rank's share ignoring DDP_IGNORE_SHARE of its labels."""
+    rng = np.random.default_rng(SEED + 13)
+    n = DDP_WORLD * DDP_PARITY_BATCH
+    h, w = DDP_PARITY_SIZE
+    img = rng.standard_normal((n, h, w, 3)).astype(np.float32)
+    labels = rng.integers(0, 13, (n, h // 8, w // 8))
+    for r, share in enumerate(DDP_IGNORE_SHARE):
+        part = labels[r * DDP_PARITY_BATCH:(r + 1) * DDP_PARITY_BATCH]
+        part[rng.random(part.shape) < share] = -1
+    return img, labels
+
+
+def _ddp_parity_run(weights, rank, world, group, dtype, reverse=False):
+    """DDP_PARITY_STEPS AnomalyTrainSteps (in ``dtype``, float64 or fp32
+    with TF32 off, guard on, dropout held out) of the full-width model from
+    ``weights`` on rank ``rank``'s share of the fixed global batch (all of
+    it for one process; ``reverse``: its images in reverse order, the same
+    sums taken in another order). Returns the losses and the state dict,
+    before and after."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli._common import (
+        build_anomaly_model, init_or_load_variables)
+    from open_world_semantic_segmentation_tpu_torch.core.config import (
+        load_config)
+    from open_world_semantic_segmentation_tpu_torch.parallel import replicate
+    from open_world_semantic_segmentation_tpu_torch.train.optim import (
+        poly_schedule, two_group_optimizer)
+    from open_world_semantic_segmentation_tpu_torch.train.state import (
+        AnomalyTrainStep)
+
+    cfg = load_config("configs/train_embedding.yaml", [
+        "MODEL.weights_encoder", weights[0],
+        "MODEL.weights_decoder", weights[1]])
+    model = build_anomaly_model(cfg, DEVICE, train=True)
+    init_or_load_variables(cfg, model, seed=SEED)
+    model.to(dtype)
+    replicate(model, group)
+    start = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.eval()
+    t = cfg.TRAIN
+    optimizer = two_group_optimizer(
+        model, lr_encoder=poly_schedule(t.lr_encoder, 100, t.lr_pow),
+        lr_decoder=poly_schedule(t.lr_decoder, 100, t.lr_pow),
+        momentum=t.beta1, weight_decay=t.weight_decay)
+    step = AnomalyTrainStep(model, optimizer, alpha=0.01, guard=True,
+                            dtype=dtype, group=group)
+    img, labels = _ddp_parity_inputs()
+    if reverse:
+        img, labels = img[::-1].copy(), labels[::-1].copy()
+    part = slice(rank * len(img) // world, (rank + 1) * len(img) // world)
+    batch = {"img_data": torch.from_numpy(img[part]).to(DEVICE, dtype),
+             "seg_label": torch.from_numpy(labels[part]).to(DEVICE)}
+    losses, skipped = [], []
+    for _ in range(DDP_PARITY_STEPS):
+        m = step(batch)
+        losses.append(float(m["loss"]))
+        skipped.append(bool(m["skipped"]))
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return {"losses": losses, "skipped": skipped, "state": state,
+            "start": start}
+
+
+def _ddp_bn_input():
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    return (torch.randn(DDP_WORLD * DDP_PARITY_BATCH, 64, 32, 32,
+                        generator=gen, device=DEVICE) * 2 + 1).to(
+        torch.bfloat16)
+
+
+def _ddp_bn_forward(x, group):
+    """Train-mode BN of a bf16 input under bf16 autocast (over ``group``
+    when given): the output and its dtype."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.models.layers import (
+        BatchNorm2d)
+
+    bn = BatchNorm2d(x.shape[1]).to(DEVICE).train()
+    bn.group = group
+    with torch.autocast(DEVICE, dtype=torch.bfloat16):
+        y = bn(x)
+    return y.detach().float().cpu(), str(y.dtype), bn.running_var.cpu()
+
+
+def _ddp_support(rank, world):
+    """Rank ``rank``'s first DDP_SUPPORT_PER_RANK support images of the
+    deeplab phase's tree (its shard of the split, as ``batch_iterator``
+    deals it), with their labels."""
+    from open_world_semantic_segmentation_tpu_torch.cli.main_deeplab import (
+        get_transforms)
+    from open_world_semantic_segmentation_tpu_torch.core.config import (
+        load_config)
+    from open_world_semantic_segmentation_tpu_torch.data.cityscapes import (
+        Cityscapes)
+    from open_world_semantic_segmentation_tpu_torch.data.loader import (
+        batch_iterator)
+
+    cfg = load_config("configs/cityscapes_embedding.yaml")
+    ds = Cityscapes(DDP_ROOT["cityscapes"], split="train",
+                    transform=get_transforms(cfg.DEEPLAB.crop_size)[1],
+                    unknown_target=tuple(cfg.DEEPLAB.unknown_target))
+    image, _, target = next(batch_iterator(
+        ds, DDP_SUPPORT_PER_RANK, shuffle=False, epochs=1, num_workers=2,
+        num_hosts=world, host_id=rank))
+    return image, target
+
+
+def _ddp_prototype(images, targets, group):
+    """The car prototype of ``images`` (fp32, TF32 off) through the DeepLab
+    embedding model with ``fused_blocks=True`` from the deeplab phase's
+    checkpoint, over ``group``; with the fused_bottleneck block calls and
+    kernel launches of the forward."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli.main_deeplab import (
+        build_deeplab_model, init_or_load_deeplab)
+    from open_world_semantic_segmentation_tpu_torch.core.config import (
+        load_config)
+    from open_world_semantic_segmentation_tpu_torch.fewshot.prototypes import (
+        extract_prototype)
+    from open_world_semantic_segmentation_tpu_torch.ops.fused_block import (
+        fused_bottleneck)
+
+    cfg = load_config("configs/cityscapes_embedding.yaml")
+    model, _ = build_deeplab_model(cfg, DEVICE, fused_blocks=True)
+    init_or_load_deeplab(model, DDP_ROOT["deeplab_ckpt"])
+    fused_bottleneck.launches = fused_bottleneck.kernel_launches = 0
+    with torch.inference_mode():
+        _, _, features = model(torch.from_numpy(images).to(DEVICE))
+        proto, valid = extract_prototype(
+            features, torch.from_numpy(targets).to(DEVICE), 13, group=group)
+    return {"proto": proto.cpu(), "valid": bool(valid),
+            "launches": fused_bottleneck.launches,
+            "kernel_launches": fused_bottleneck.kernel_launches}
+
+
+# the deeplab phase's tree and checkpoint, for the workers too
+DDP_ROOT = {}
+
+
+def ddp_worker(out_dir):
+    """One rank of the ddp phase's own job (``chip_smoke.py --ddp-worker
+    DIR``, RANK / WORLD_SIZE / LOCAL_RANK in the environment): joins a gloo
+    group on cuda over ``DIR/store``, runs the step parity, the bf16 BN
+    dtype check and the distributed prototype, writes ``DIR/rank<r>.pt``
+    and leaves without tearing the group down."""
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.parallel import (
+        data_group, init_distributed)
+
+    global DEVICE, DDP_PARITY_SIZE
+    with open(os.path.join(out_dir, "inputs.json")) as f:
+        inputs = json.load(f)
+    DDP_ROOT.update(inputs["root"])
+    DEVICE = inputs["device"]
+    DDP_PARITY_SIZE = tuple(inputs["parity_size"])
+    rank, world, device = init_distributed(
+        DEVICE, backend="gloo", init_method="file://" + os.path.join(
+            out_dir, "store"), timeout_s=DDP_RANK_TIMEOUT_S)
+    group = data_group()
+    _tf32_off()
+    tic = time.perf_counter()
+    res = {"rank": rank, "backend": torch.distributed.get_backend()}
+    res["parity"] = {
+        name: _ddp_parity_run(inputs["weights"], rank, world, group, dtype)
+        for name, dtype in (("float64", torch.float64),
+                            ("fp32", torch.float32))}
+    x = _ddp_bn_input()
+    part = slice(rank * len(x) // world, (rank + 1) * len(x) // world)
+    res["bn"] = _ddp_bn_forward(x[part], group)
+    images, targets = _ddp_support(rank, world)
+    res["prototype"] = _ddp_prototype(images, targets, group)
+    res["seconds"] = time.perf_counter() - tic
+    path = os.path.join(out_dir, f"rank{rank}.pt")
+    torch.save(res, path + ".part")
+    os.replace(path + ".part", path)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def _ddp_job(out_dir, world):
+    """Start ``world`` worker ranks of this script; returns their
+    processes and log files."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT")}
+    env["WORLD_SIZE"] = str(world)
+    procs = []
+    for rank in range(world):
+        log_file = open(os.path.join(out_dir, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ddp-worker",
+             out_dir],
+            env={**env, "RANK": str(rank), "LOCAL_RANK": str(rank)},
+            stdout=log_file, stderr=subprocess.STDOUT), log_file))
+    return procs
+
+
+def _ddp_wait(out_dir, procs):
+    """Each rank's results; fails with the ranks' log tails unless every
+    rank wrote them within DDP_RANK_TIMEOUT_S; kills what is left."""
+    import torch
+
+    paths = [os.path.join(out_dir, f"rank{r}.pt") for r in range(len(procs))]
+    deadline = time.monotonic() + DDP_RANK_TIMEOUT_S
+    try:
+        while time.monotonic() < deadline:
+            if all(os.path.exists(p) for p in paths) or any(
+                    proc.poll() not in (None, 0) for proc, _ in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        _ddp_stop(procs)
+    if not all(os.path.exists(p) for p in paths):
+        tails = []
+        for r, (proc, _) in enumerate(procs):
+            with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+                tails.append(f"--- rank {r} (rc {proc.returncode}):\n"
+                             + f.read()[-4000:])
+        raise AssertionError("ddp job: not every rank finished\n"
+                             + "\n".join(tails))
+    return [torch.load(p, weights_only=False) for p in paths]
+
+
+def _ddp_stop(procs):
+    """Give each rank 10 s to end, then kill it; close the logs."""
+    for proc, log_file in procs:
+        if proc.poll() is None:
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        log_file.close()
+
+
+def _update_distance(got, want, start):
+    """How far state dict ``got`` is from ``want``, as fractions of the
+    change from ``start`` to ``want``: ``max_frac``, the largest of any
+    float tensor's largest |difference| over its largest change (a tensor
+    that did not change must be equal); ``norm_frac``, the norm of all the
+    differences over the norm of all the changes; and ``ints_equal``,
+    whether every other tensor is equal; ``worst``, the tensor of
+    ``max_frac``."""
+    worst, diff2, moved2, exact = (0.0, ""), 0.0, 0.0, True
+    for key, value in want.items():
+        if value.is_floating_point():
+            diff = got[key].double() - value.double()
+            moved = value.double() - start[key].double()
+            d, m = float(diff.abs().max()), float(moved.abs().max())
+            worst = max(worst, (d / m if m else
+                                (0.0 if d == 0 else float("inf")), key))
+            diff2 += float(diff.square().sum())
+            moved2 += float(moved.square().sum())
+        else:
+            exact = exact and bool((got[key] == value).all())
+    return {"max_frac": worst[0], "worst": worst[1],
+            "norm_frac": (diff2 / moved2) ** 0.5, "ints_equal": exact}
+
+
+def _bit_identical(states):
+    return all(all(bool((s[k] == states[0][k]).all()) for k in states[0])
+               for s in states[1:])
+
+
+def _torchrun(args, world, log_dir, timeout):
+    """``python -m torch.distributed.run`` with ``world`` ranks, output of
+    each rank prefixed ``[default<rank>]:``, OMP_NUM_THREADS 8 / world
+    (the launcher's default is 1). Returns (rc, output, s, stamps):
+    ``stamps`` the seconds after the launch at which rank 0 said it joined
+    the group and printed its first step (train_embedding)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(world), "--log-dir", log_dir, "--tee",
+           "3", "-m", *args]
+    env = {**os.environ, "OMP_NUM_THREADS": str(max(8 // world, 1))}
+    tic = time.perf_counter()
+    # a session of its own, so that a timeout kills the ranks with it
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            start_new_session=True)
+    timer = threading.Timer(timeout, os.killpg, (proc.pid, signal.SIGKILL))
+    timer.start()
+    lines, stamps = [], {}
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            for key, marker in (("joined", "data parallel:"),
+                                ("first_step", "Epoch: [1][1/")):
+                if line.startswith("[default0]:") and marker in line:
+                    stamps.setdefault(key, time.perf_counter() - tic)
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+    return rc, "".join(lines), time.perf_counter() - tic, stamps
+
+
+def _metrics_s_per_step(path):
+    """Median seconds between the logged steps of a metrics.jsonl, after
+    the first; and the steps it holds."""
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    times = [r["time"] for r in rows]
+    return float(np.median(np.diff(times)[1:])), [r["step"] for r in rows]
+
+
+def _rank_lines(output, rank, marker):
+    return [line for line in output.splitlines()
+            if line.startswith(f"[default{rank}]:") and marker in line]
+
+
+def _pair_state(ckpt):
+    import torch
+
+    return {f"{part}.{k}": v for part in ("encoder", "decoder")
+            for k, v in torch.load(os.path.join(
+                ckpt, f"{part}_epoch_1.pth"), map_location="cpu").items()}
+
+
+def ddp_phase(root, cfg):
+    """Data-parallel training on the card; see the module note. Returns
+    the summary."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from open_world_semantic_segmentation_tpu_torch.cli import (
+        train_embedding)
+    from open_world_semantic_segmentation_tpu_torch.core.config import (
+        load_config)
+    from open_world_semantic_segmentation_tpu_torch.utils.observability import (
+        TRACE_FILE, annotate, profile_trace)
+
+    summary = {}
+    phase_tic = time.perf_counter()
+    laps = {}                            # seconds of each part, in order
+    if DEVICE == "cuda":
+        # the earlier phases' cached blocks, for the ranks started below
+        torch.cuda.empty_cache()
+
+    def lap(name):
+        laps[name] = time.perf_counter() - phase_tic - sum(laps.values())
+
+    weights = [cfg.MODEL.weights_encoder, cfg.MODEL.weights_decoder]
+    DDP_ROOT.update(cityscapes=os.path.join(root, "cityscapes"),
+                    deeplab_ckpt=os.path.join(root, "deeplab_embedding.pth"))
+    job_dir = os.path.join(root, "ddp_job")
+    os.makedirs(job_dir)
+    with open(os.path.join(job_dir, "inputs.json"), "w") as f:
+        json.dump({"weights": weights, "root": DDP_ROOT, "device": DEVICE,
+                   "parity_size": DDP_PARITY_SIZE}, f)
+    # train_embedding's arguments (fp32, TF32 off): DDP_CLI_STEPS steps of
+    # the config's batch a rank on the train phase's tree
+    tree = os.path.join(root, "train")
+    base = ["DATASET.root_dataset", tree,
+            "DATASET.list_train", os.path.join(tree, "training.odgt"),
+            "DATASET.imgSizes", DDP_CLI_SIZES,
+            "DATASET.imgMaxSize", DDP_CLI_MAX_SIZE,
+            "TRAIN.epoch_iters", str(DDP_CLI_STEPS), "TRAIN.num_epoch", "1",
+            "TRAIN.disp_iter", "1", "MODEL.weights_encoder", weights[0],
+            "MODEL.weights_decoder", weights[1]]
+
+    def train_embedding_launch(name, world, extra):
+        return _torchrun(
+            ["open_world_semantic_segmentation_tpu_torch.cli.train_embedding",
+             "--device", DEVICE, "--precision", "fp32",
+             "--max-steps", str(DDP_CLI_STEPS), *extra,
+             "--cfg", "configs/train_embedding.yaml", *base,
+             "DIR", os.path.join(root, f"ddp_{name}")], world,
+            os.path.join(root, f"ddp_{name}_logs"), DDP_RANK_TIMEOUT_S)
+
+    # main_deeplab (2 ranks, bf16) and the one-rank NCCL train_embedding,
+    # both under torch.distributed.run, run beside the rank job and this
+    # process's side of it: none of them is timed against another run
+    deeplab_dir = os.path.join(root, "ddp_deeplab")
+    launches = ThreadPoolExecutor(2)
+    nccl_launch = launches.submit(train_embedding_launch, "1_rank_nccl", 1,
+                                  [])
+    deeplab_launch = launches.submit(_torchrun, [
+        "open_world_semantic_segmentation_tpu_torch.cli.main_deeplab",
+        "--device", DEVICE,
+        "--max-steps", str(DDP_DEEPLAB_STEPS),
+        "--cfg", "configs/cityscapes_embedding.yaml",
+        "DATASET.root_dataset", os.path.join(root, "cityscapes_train"),
+        "DEEPLAB.ckpt", DDP_ROOT["deeplab_ckpt"],
+        "DEEPLAB.lr", str(DEEPLAB_SMOKE_LR),
+        "DEEPLAB.val_interval", str(DDP_DEEPLAB_STEPS),
+        "DEEPLAB.batch_size", str(DDP_DEEPLAB_BATCH),
+        "DIR", deeplab_dir], DDP_WORLD,
+        os.path.join(root, "ddp_deeplab_logs"), DDP_RANK_TIMEOUT_S)
+    launches.shutdown(wait=False)
+    # the 2-rank job runs while this process takes the one-process side
+    procs = _ddp_job(job_dir, DDP_WORLD)
+    saved = _tf32_off()
+    try:
+        want = {name: _ddp_parity_run(weights, 0, 1, None, dtype)
+                for name, dtype in (("float64", torch.float64),
+                                    ("fp32", torch.float32))}
+        reversed64 = _ddp_parity_run(weights, 0, 1, None, torch.float64,
+                                     reverse=True)
+        x = _ddp_bn_input()
+        want_bn = _ddp_bn_forward(x, None)
+        parts = [_ddp_support(r, DDP_WORLD) for r in range(DDP_WORLD)]
+        want_proto = _ddp_prototype(
+            np.concatenate([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]), None)
+        lap("one_process_side")
+        ranks = _ddp_wait(job_dir, procs)
+        lap("rank_job_wait")
+    finally:
+        _tf32_set(saved)
+        _ddp_stop(procs)
+
+    # 1. full-width step parity, 2 ranks x 2 against 1 process x 4
+    parity = {"backend": ranks[0]["backend"],
+              "job_seconds": max(r["seconds"] for r in ranks)}
+    for name in ("float64", "fp32"):
+        got, ref = ranks[0]["parity"][name], want[name]
+        parity[name] = {
+            "losses_2_ranks": got["losses"], "losses_1_process": ref["losses"],
+            "loss_max_rel": max(abs(a - b) / abs(b) for a, b in
+                                zip(got["losses"], ref["losses"])),
+            "ranks_bit_identical": _bit_identical(
+                [r["parity"][name]["state"] for r in ranks]),
+            "vs_1_process": _update_distance(got["state"], ref["state"],
+                                             ref["start"])}
+        if any(any(r["parity"][name]["skipped"]) for r in ranks) or any(
+                ref["skipped"]):
+            raise AssertionError(f"ddp step parity {name}: a step skipped")
+    f64, f32 = want["float64"], want["fp32"]
+    parity["float64"]["reversed_vs_1_process"] = _update_distance(
+        reversed64["state"], f64["state"], f64["start"])
+    parity["fp32"]["2_ranks_vs_float64"] = _update_distance(
+        ranks[0]["parity"]["fp32"]["state"], f64["state"], f64["start"])
+    parity["fp32"]["1_process_vs_float64"] = _update_distance(
+        f32["state"], f64["state"], f64["start"])
+    summary["step_parity"] = parity
+    log("ddp step parity: " + json.dumps(parity))
+    p64, p32 = parity["float64"], parity["fp32"]
+    bound64 = (DDP_F64_NOISE_RATIO
+               * p64["reversed_vs_1_process"]["norm_frac"] + DDP_F64_FLOOR)
+    bound = (DDP_F32_NOISE_RATIO * p32["1_process_vs_float64"]["norm_frac"]
+             + DDP_F32_FLOOR)
+    if not (parity["backend"] == "gloo"
+            and p64["loss_max_rel"] <= DDP_F64_LOSS_RTOL
+            and p64["vs_1_process"]["norm_frac"] <= bound64
+            and p32["2_ranks_vs_float64"]["norm_frac"] <= bound
+            and all(p["ranks_bit_identical"] and p["vs_1_process"][
+                "ints_equal"] for p in (p64, p32))):
+        raise AssertionError("ddp step parity: " + json.dumps(parity))
+    # the bf16 BN over ranks: bf16 out, within bf16 rounding of one process
+    got_bn = torch.cat([r["bn"][0] for r in ranks])
+    bn_err = float((got_bn - want_bn[0]).abs().max())
+    summary["bn_bf16"] = {"dtype": [r["bn"][1] for r in ranks],
+                          "one_process_dtype": want_bn[1],
+                          "max_abs_err": bn_err,
+                          "running_var_max_abs_err": float(
+                              (ranks[0]["bn"][2] - want_bn[2]).abs().max())}
+    log("ddp bf16 batch norm: " + json.dumps(summary["bn_bf16"]))
+    if set(summary["bn_bf16"]["dtype"]) != {"torch.bfloat16"} or \
+            bn_err > DDP_BN_DTYPE_ATOL:
+        raise AssertionError("ddp bf16 batch norm: "
+                             + json.dumps(summary["bn_bf16"]))
+
+    # 4. the prototype of 2 ranks' support images against one process's
+    got = ranks[0]["prototype"]
+    rel = float((got["proto"] - want_proto["proto"]).abs().max()
+                / want_proto["proto"].abs().max())
+    summary["prototype"] = {
+        "valid": [r["prototype"]["valid"] for r in ranks],
+        "one_process_valid": want_proto["valid"], "max_rel": rel,
+        "ranks_equal": all(bool((r["prototype"]["proto"]
+                                 == got["proto"]).all()) for r in ranks),
+        "launches": [r["prototype"]["launches"] for r in ranks],
+        "kernel_launches": [r["prototype"]["kernel_launches"]
+                            for r in ranks],
+        "one_process_launches": want_proto["launches"]}
+    log("ddp prototype: " + json.dumps(summary["prototype"]))
+    if not (want_proto["valid"] and all(summary["prototype"]["valid"])
+            and rel <= DDP_PROTO_RTOL and summary["prototype"]["ranks_equal"]
+            and summary["prototype"]["launches"] == [DEEPLAB_ROUTED_BLOCKS]
+            * DDP_WORLD and summary["prototype"]["kernel_launches"]
+            == [3 * DEEPLAB_ROUTED_BLOCKS] * DDP_WORLD):
+        raise AssertionError("ddp prototype: "
+                             + json.dumps(summary["prototype"]))
+
+    rc, output, seconds, stamps = deeplab_launch.result()
+    lap("main_deeplab_2_ranks_wait")
+    with open(os.path.join(root, "ddp_deeplab.log"), "w") as f:
+        f.write(output)
+    summary["main_deeplab"] = {
+        "rc": rc, "seconds": seconds, "launch_stamps": stamps,
+        "validation_lines": [len(_rank_lines(output, r, "validation..."))
+                             for r in range(DDP_WORLD)],
+        "replicas_line": bool(_rank_lines(output, 0, "replicas:")),
+        "files": sorted(os.listdir(deeplab_dir)) if os.path.isdir(
+            deeplab_dir) else []}
+    log("ddp main_deeplab: " + json.dumps(summary["main_deeplab"]))
+    if rc or summary["main_deeplab"]["validation_lines"] != [1, 0] or \
+            not summary["main_deeplab"]["replicas_line"] or \
+            summary["main_deeplab"]["files"] != ["best.pth", "latest.pth"]:
+        raise AssertionError("main_deeplab over 2 ranks: "
+                             + json.dumps(summary["main_deeplab"])
+                             + "\n" + output[-4000:])
+
+    # 2-3. train_embedding under torch.distributed.run: 2 ranks (gloo,
+    # timed alone) and 1 rank (NCCL, above), then the plain run twice in
+    # this process (timed alone, fp32, TF32 off)
+    runs = {}
+    nccl_result = nccl_launch.result()   # ended before the timed launch
+    for name, world, result in (
+            ("2_ranks_gloo", DDP_WORLD, train_embedding_launch(
+                "2_ranks_gloo", DDP_WORLD, [])),
+            ("1_rank_nccl", 1, nccl_result)):
+        rc, output, seconds, stamps = result
+        with open(os.path.join(root, f"ddp_{name}.log"), "w") as f:
+            f.write(output)
+        lap(f"train_embedding_{name}")
+        if rc:
+            raise AssertionError(f"train_embedding {name}: rc {rc}\n"
+                                 + output[-4000:])
+        s_per_step, steps = _metrics_s_per_step(
+            os.path.join(root, f"ddp_{name}", "metrics.jsonl"))
+        batch = world * load_config("configs/train_embedding.yaml") \
+            .TRAIN.batch_size_per_gpu
+        runs[name] = {
+            "s_per_step": s_per_step, "imgs_per_s": batch / s_per_step,
+            "global_batch": batch, "seconds": seconds,
+            "launch_stamps": stamps, "metrics_steps": steps,
+            "announced": _rank_lines(output, 0, "data parallel:"),
+            "progress_lines": [len(_rank_lines(output, r, "Epoch:"))
+                               for r in range(world)],
+            "replicas_line": bool(_rank_lines(output, 0, "replicas:"))}
+        if steps != list(range(1, DDP_CLI_STEPS + 1)) or \
+                runs[name]["progress_lines"][1:] != [0] * (world - 1) or \
+                runs[name]["progress_lines"][0] != DDP_CLI_STEPS or \
+                (world > 1 and not runs[name]["replicas_line"]):
+            raise AssertionError(f"train_embedding {name}: "
+                                 + json.dumps(runs[name]))
+    runs["1_rank_nccl"]["timed_beside_other_work"] = True
+    backend = runs["1_rank_nccl"]["announced"]
+    one_rank = "nccl" if DEVICE == "cuda" else "gloo"
+    if not backend or f"backend {one_rank}" not in backend[0] or \
+            "backend gloo" not in runs["2_ranks_gloo"]["announced"][0]:
+        raise AssertionError(f"backends: {runs}")
+    plain = {}
+    saved = _tf32_off()
+    try:
+        for name in ("plain", "plain_again"):
+            pcfg = load_config("configs/train_embedding.yaml", base + [
+                "DIR", os.path.join(root, f"ddp_{name}")])
+            plain[name], _ = counted(f"the {name} train run",
+                                     lambda: train_embedding.main(
+                                         pcfg, torch.float32,
+                                         max_steps=DDP_CLI_STEPS,
+                                         device=DEVICE))
+    finally:
+        _tf32_set(saved)
+    lap("train_embedding_plain_twice")
+    seconds = [e["seconds"] for e in plain["plain"]["log"]]
+    runs["plain"] = {"s_per_step": float(np.median(np.diff(seconds)[1:])),
+                     "global_batch": pcfg.TRAIN.batch_size_per_gpu}
+    runs["plain"]["imgs_per_s"] = (runs["plain"]["global_batch"]
+                                   / runs["plain"]["s_per_step"])
+    start = {f"{part}.{k}": v for part in ("encoder", "decoder")
+             for k, v in torch.load(weights[part == "decoder"],
+                                    map_location="cpu").items()}
+    ref = _pair_state(os.path.join(root, "ddp_plain"))
+    with open(os.path.join(root, "ddp_1_rank_nccl", "metrics.jsonl")) as f:
+        nccl_losses = [json.loads(line)["loss"] for line in f]
+    plain_losses = [e["loss"] for e in plain["plain"]["log"]]
+    runs["1_rank_nccl"].update(
+        vs_plain=_update_distance(_pair_state(os.path.join(
+            root, "ddp_1_rank_nccl")), ref, start),
+        plain_again_vs_plain=_update_distance(_pair_state(os.path.join(
+            root, "ddp_plain_again")), ref, start),
+        losses=nccl_losses, plain_losses=plain_losses,
+        first_loss_rel=abs(nccl_losses[0] - plain_losses[0])
+        / abs(plain_losses[0]))
+    summary["train_embedding"] = runs
+    log("ddp train_embedding: " + json.dumps(runs))
+    nccl = runs["1_rank_nccl"]
+    bound = (DDP_F32_NOISE_RATIO * nccl["plain_again_vs_plain"]["norm_frac"]
+             + DDP_F32_FLOOR)
+    if nccl["vs_plain"]["norm_frac"] > bound or \
+            not nccl["vs_plain"]["ints_equal"] or \
+            nccl["first_loss_rel"] > DDP_NCCL_LOSS_RTOL:
+        raise AssertionError("the one-rank NCCL run against the plain one: "
+                             + json.dumps(nccl))
+
+    # 5. the profiler around one fused StreetHazards forward
+    from open_world_semantic_segmentation_tpu_torch.cli._common import (
+        build_anomaly_model, init_or_load_variables)
+
+    model = build_anomaly_model(cfg, DEVICE, fused_blocks=True)
+    init_or_load_variables(cfg, model)
+    h, w = DDP_PROFILED_SIZE
+    x = torch.randn(1, h, w, 3, device=DEVICE)
+    trace_dir = os.path.join(root, "ddp_trace")
+    with torch.inference_mode(), torch.autocast(DEVICE,
+                                                dtype=torch.bfloat16):
+        model(x, seg_size=(h, w))        # warm
+
+        def traced():
+            with profile_trace(trace_dir):
+                with annotate("fused_forward"):
+                    model(x, seg_size=(h, w))
+        _, launches = counted("the profiled fused forward", traced,
+                              {"fused_bottleneck": DDP_PROFILED_BLOCKS})
+    with open(os.path.join(trace_dir, TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    fused = [e for e in kernels if "phase_kernel" in e.get("name", "")]
+    summary["profiler"] = {
+        "kernel_events": len(kernels), "fused_kernel_events": len(fused),
+        "fused_kernel_name": fused[0]["name"] if fused else None,
+        "fused_kernel_us": sum(e.get("dur", 0) for e in fused),
+        "annotated": any(e.get("name") == "fused_forward" for e in events),
+        "launches": launches}
+    log("ddp profiler: " + json.dumps(summary["profiler"]))
+    if len(fused) != 3 * DDP_PROFILED_BLOCKS or \
+            not summary["profiler"]["annotated"]:
+        raise AssertionError("profiler: " + json.dumps(summary["profiler"]))
+    lap("profiler")
+    summary["part_seconds"] = laps
+    summary["seconds"] = time.perf_counter() - phase_tic
+    return summary
+
+
 def main():
     import torch
 
+    here = os.path.dirname(os.path.abspath(__file__))
+    if sys.argv[1:2] == ["--ddp-worker"]:      # a rank of the ddp phase
+        os.chdir(here)
+        sys.path.insert(0, here)
+        return ddp_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    here = os.path.dirname(os.path.abspath(__file__))
     os.chdir(here)
     sys.path.insert(0, here)
     import open_world_semantic_segmentation_tpu_torch  # noqa: F401
@@ -4591,6 +5310,7 @@ def main():
         training, (plm_launches, teacher_launches) = phase(
             "deeplab train", deeplab_train_phase, root)
         voc = phase("voc", voc_phase, root)
+        ddp = phase("ddp", ddp_phase, root, cfg)
         zoo, zoo_launches = phase("zoo", zoo_phase, root, cfg)
     faulthandler.cancel_dump_traceback_later()
     # launches on the main path: knn_cosine in the knn run, fused_bottleneck
@@ -4635,6 +5355,7 @@ def main():
     log(f"gpu: {gpu}; zoo: " + json.dumps(zoo))
     log(f"gpu: {gpu}; quant: " + json.dumps(quantized))
     log(f"gpu: {gpu}; voc: " + json.dumps(voc))
+    log(f"gpu: {gpu}; ddp: " + json.dumps(ddp))
     log(f"total {time.perf_counter() - tic:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

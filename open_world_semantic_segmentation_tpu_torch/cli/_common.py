@@ -4,11 +4,14 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 import torch
+import torch.distributed as dist
 
 from ..core.config import Config, load_config
 from ..core.device import resolve_device
+from ..parallel.mesh import replicas_agree
 
 
 def config_parser(description: str) -> argparse.ArgumentParser:
@@ -24,6 +27,40 @@ def config_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("opts", nargs=argparse.REMAINDER, default=None,
                    help="config overrides: SECTION.key value ...")
     return p
+
+
+def announce_ranks(rank: int, world: int):
+    """Rank 0 of a process group says how many ranks train, over which
+    backend."""
+    if rank == 0 and dist.is_initialized():
+        print(f"data parallel: {world} rank{'s' if world > 1 else ''}, "
+              f"backend {dist.get_backend()}", flush=True)
+
+
+def check_replicas(model, world: int, lead: bool):
+    """Over more than one rank: raise unless every rank holds the same
+    bits in every parameter and buffer of ``model``."""
+    if world == 1:
+        return
+    if not replicas_agree(list(model.parameters())
+                          + list(model.buffers())):
+        raise RuntimeError("the ranks' parameters or buffers differ")
+    if lead:
+        print(f"replicas: {world} ranks bit-identical", flush=True)
+
+
+def leave_ranks():
+    """End a rank's process after its entry point returned: with a process
+    group alive, flush the output and leave with ``os._exit(0)``, neither
+    tearing the group down (``destroy_process_group`` can hang after the
+    last collective) nor finalising the interpreter with it alive (gloo's
+    threads can abort it then: "terminate called without an active
+    exception" after a 2-rank ``main_deeplab`` on an H100). Every file the
+    entry point wrote is closed by then. Without a group, nothing."""
+    if dist.is_initialized():
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
 
 
 def parse_config(args) -> Config:

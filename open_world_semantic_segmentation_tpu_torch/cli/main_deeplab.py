@@ -6,6 +6,8 @@ Usage:
       --cfg configs/cityscapes_embedding.yaml [DEEPLAB.total_itrs 30000 ...]
   (eval only: DEEPLAB.test_only True DEEPLAB.ckpt best.pth, which runs
   ``cli/test_deeplab.py``)
+  over N ranks: python -m torch.distributed.run --nproc_per_node N \
+      -m open_world_semantic_segmentation_tpu_torch.cli.main_deeplab ...
 
 Runs on CUDA unless ``--device cpu`` is given; ``--precision bf16`` (the
 default) runs under bf16 autocast over float32 parameters. The closed-set
@@ -22,8 +24,13 @@ given, is the model's start, as in the reference's main.py (the JAX
 trainer starts from its seed alone). Embedding models
 train with 16 classes and the open-world unknown remap
 (main_embedding.py:336, 401); the self-distillation model trains its
-newest head only. One GPU: batches go to the device directly (the JAX
-package's multi-host input shards wait, ``ROADMAP.md``).
+newest head only. Under ``torch.distributed.run`` each rank trains on
+``cuda:LOCAL_RANK`` on its own shard of every epoch (``batch_iterator``'s
+``num_hosts`` / ``host_id``), DEEPLAB.batch_size images a step, with batch
+norm, the loss and the gradients reduced over the ranks, as
+``cli/train_embedding.py`` does; rank 0's weights start every rank, each
+rank seeds dropout with DEEPLAB.random_seed plus its rank, and only rank 0
+prints, writes checkpoints and validates.
 ``DEEPLAB.dataset voc`` trains on PASCAL VOC's ``train_aug`` split
 (``data/voc.py``) with the reference's VOC transform (random scale 0.5-2,
 a pad-if-needed crop, a flip; main.py:103-110) and validates on ``val``,
@@ -47,7 +54,8 @@ import time
 import numpy as np
 import torch
 
-from ._common import compute_dtype, config_parser, parse_config
+from ._common import (announce_ranks, check_replicas, compute_dtype,
+                      config_parser, leave_ranks, parse_config)
 from ..core.device import resolve_device
 from ..data import transforms as et
 from ..data.cityscapes import Cityscapes
@@ -56,6 +64,7 @@ from ..data.voc import VOCSegmentation
 from ..data.prefetch import prefetch_to_device
 from ..metrics.segmentation import StreamSegMetrics
 from ..models import deeplab as deeplab_models
+from ..parallel.mesh import init_distributed, replicate
 from ..train.checkpoint import (load_deeplab_checkpoint,
                                 save_deeplab_checkpoint)
 from ..train.optim import backbone_classifier_optimizer, poly_schedule
@@ -253,22 +262,27 @@ def double_buffered(batches, dispatch, resolve, max_images=None):
     return count, clock
 
 
-def train_batches(dataset, batch_size: int, seed: int, device):
+def train_batches(dataset, batch_size: int, seed: int, device, *,
+                  num_hosts: int = 1, host_id: int = 0):
     """Shuffled batches of ``dataset`` for ever, as dicts of ``image``
-    (NHWC float32) and ``label`` (int32) on ``device``, two in flight."""
+    (NHWC float32) and ``label`` (int32) on ``device``, two in flight;
+    host ``host_id``'s shard of each epoch with ``num_hosts`` > 1."""
     return prefetch_to_device(
         ({"image": image, "label": target.astype(np.int32)}
-         for image, target, _ in batch_iterator(dataset, batch_size,
-                                                seed=seed)), device)
+         for image, target, _ in batch_iterator(
+             dataset, batch_size, seed=seed, num_hosts=num_hosts,
+             host_id=host_id)), device)
 
 
 def train_loop(step_fn, batches, *, cur_itrs: int, total_itrs: int,
-               max_steps=None, log_every: int = 10, after_step=None):
+               max_steps=None, log_every: int = 10, after_step=None,
+               verbose: bool = True):
     """The trainers' loop: ``step_fn`` over ``batches`` from step
     ``cur_itrs`` until ``total_itrs`` (or ``max_steps``), calling
     ``after_step(cur_itrs, metrics)`` after each step. Every ``log_every``
-    steps the mean loss since the last log is read back (a sync point) and
-    printed as the reference prints it. Closes ``batches``. Returns
+    steps the mean loss since the last log is read back (a sync point) and,
+    if ``verbose``, printed as the reference prints it. Closes ``batches``.
+    Returns
     ``(cur_itrs, log)``, ``log`` one entry per logged step with its
     ``loss``, the loop's wall ``seconds`` and the ``wait`` for the loader
     so far."""
@@ -286,8 +300,9 @@ def train_loop(step_fn, batches, *, cur_itrs: int, total_itrs: int,
             if cur_itrs % log_every == 0:
                 loss = float(torch.stack(losses).mean())
                 losses = []
-                print("Itrs %d/%d, Loss=%f" % (cur_itrs, total_itrs, loss),
-                      flush=True)
+                if verbose:
+                    print("Itrs %d/%d, Loss=%f" % (cur_itrs, total_itrs,
+                                                   loss), flush=True)
                 log.append({"step": cur_itrs, "loss": loss,
                             "seconds": time.perf_counter() - start,
                             "wait": wait})
@@ -304,20 +319,25 @@ def main(cfg, precision_dtype=torch.bfloat16, max_steps=None, device=None,
     ``cli/test_deeplab.py``; ``max_images`` applies there). Stops after
     DEEPLAB.total_itrs steps, or at step ``max_steps``. Returns a summary:
     ``steps`` taken, ``cur_itrs``, ``skipped``, ``best_score``,
-    ``validations`` (the mIoU of each) and ``train_loop``'s ``log``."""
+    ``validations`` (the mIoU of each; rank 0 validates), ``rank``,
+    ``world`` and ``train_loop``'s ``log``. Under
+    ``torch.distributed.run`` it trains over the ranks."""
     d = cfg.DEEPLAB
     if d.test_only:
         from . import test_deeplab
 
         return test_deeplab.main(cfg, precision_dtype,
                                  max_images=max_images, device=device)
-    device = resolve_device(device)
+    rank, world, device = init_distributed(device)
+    lead = rank == 0
+    announce_ranks(rank, world)
     train_tf, val_tf = get_transforms(d.crop_size, d.dataset)
     train_ds = get_train_dataset(cfg, train_tf)
     val_ds = get_val_dataset(cfg, val_tf)
-    torch.manual_seed(d.random_seed)            # dropout's generator
+    torch.manual_seed(d.random_seed + rank)     # dropout's generator
     model, num_classes = build_deeplab_model(cfg, device, train=True)
     init_or_load_deeplab(model, d.ckpt, seed=d.random_seed)
+    replicate(model)
     frozen = frozen_heads(cfg) if "self_distillation" in d.model else ()
     optimizer = backbone_classifier_optimizer(
         model, lr=poly_schedule(d.lr, d.total_itrs, 0.9, min_lr=1e-6),
@@ -332,7 +352,8 @@ def main(cfg, precision_dtype=torch.bfloat16, max_steps=None, device=None,
     if d.continue_training and os.path.exists(latest):
         first, best_score = load_deeplab_checkpoint(latest, model, optimizer)
         step_fn.step = first
-        print(f"resumed from {latest} at step {first}")
+        if lead:
+            print(f"resumed from {latest} at step {first}")
 
     from .test_deeplab import validate
 
@@ -343,7 +364,7 @@ def main(cfg, precision_dtype=torch.bfloat16, max_steps=None, device=None,
     def after_step(cur_itrs, m):
         nonlocal skipped, best_score
         skipped += m["skipped"]
-        if cur_itrs % d.val_interval:
+        if cur_itrs % d.val_interval or not lead:
             return
         save_deeplab_checkpoint(latest, model, optimizer, cur_itrs=cur_itrs,
                                 best_score=best_score)
@@ -362,12 +383,15 @@ def main(cfg, precision_dtype=torch.bfloat16, max_steps=None, device=None,
                                     best_score=best_score)
 
     cur_itrs, log = train_loop(
-        step_fn, train_batches(train_ds, d.batch_size, d.random_seed, device),
+        step_fn, train_batches(train_ds, d.batch_size, d.random_seed, device,
+                               num_hosts=world, host_id=rank),
         cur_itrs=first, total_itrs=d.total_itrs, max_steps=max_steps,
-        log_every=log_every, after_step=after_step)
+        log_every=log_every, after_step=after_step, verbose=lead)
+    check_replicas(model, world, lead)
     return {"steps": cur_itrs - first, "cur_itrs": cur_itrs,
             "skipped": int(skipped), "best_score": best_score,
-            "validations": validations, "log": log}
+            "validations": validations, "rank": rank, "world": world,
+            "log": log}
 
 
 def _entry():
@@ -378,6 +402,7 @@ def _entry():
     cfg = parse_config(args)
     main(cfg, compute_dtype(args), max_steps=args.max_steps,
          device=args.device)
+    leave_ranks()
 
 
 if __name__ == "__main__":

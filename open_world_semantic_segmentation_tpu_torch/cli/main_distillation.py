@@ -68,7 +68,8 @@ class DistillationStep(TrainStep):
                              t_logits.argmax(-1).to(labels.dtype), labels)
         loss = distillation_loss(
             s_logits, labels, t_feats, s_feats, novel_class=self.novel_id,
-            use_distillation_term=self.use_distillation_term)
+            use_distillation_term=self.use_distillation_term,
+            group=self.group)
         return loss, {}
 
 

@@ -85,8 +85,8 @@ class SelfDistillationStep(TrainStep):
         labels = pseudo_label(batch["label"], logits,
                               novel_cls=self.novel_cls,
                               base_classes=self.base_classes)
-        return deeplab_cross_entropy(logits[-1], labels,
-                                     ignore_index=255), {}
+        return deeplab_cross_entropy(logits[-1], labels, ignore_index=255,
+                                     group=self.group), {}
 
 
 def evaluate(cfg, model, num_classes: int, precision_dtype=torch.bfloat16,

@@ -2,15 +2,15 @@
 
 Same loop as ``train_embedding`` with the plain decoder family
 (ppm_deepsup / c1_deepsup / upernet ...) and the CE(+VAR) loss of
-SegmentationModule on log-softmax outputs. Decoders not ported yet raise
-through ``ModelBuilder``.
+SegmentationModule on log-softmax outputs; over N ranks under
+``torch.distributed.run`` as ``train_embedding`` is.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ._common import compute_dtype, config_parser, parse_config
+from ._common import compute_dtype, config_parser, leave_ranks, parse_config
 from . import train_embedding
 
 
@@ -27,6 +27,7 @@ def _entry():
     cfg = parse_config(args)
     main(cfg, compute_dtype(args), max_steps=args.max_steps,
          device=args.device)
+    leave_ranks()
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
-"""Map-style dataset batcher on one host (host-side, thread pool).
+"""Map-style dataset batcher (host-side, thread pool).
 
 Counterpart of the JAX package's ``data/loader.py``: it stands in for the
 torch DataLoader of the DeepLab stack; every batch of the eval is one
-shape, so a stacking collate suffices. The multi-host shards
-(``num_hosts > 1``) wait for the multi-GPU work in ``ROADMAP.md``.
+shape, so a stacking collate suffices. With ``num_hosts > 1`` each rank
+reads its own shard of every epoch (``parallel/mesh.py
+shard_index_space``), as torch's DistributedSampler does.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Optional
 
 import numpy as np
+
+from ..parallel.mesh import check_shard, shard_index_space
 
 
 def default_collate(samples):
@@ -36,10 +39,13 @@ def batch_iterator(dataset, batch_size: int, *, shuffle: bool = True,
     epoch`` (numpy's default_rng), or the dataset order without
     ``shuffle``; a batch's samples are loaded by a pool of
     ``num_workers`` threads. A dataset with ``set_epoch`` is told each
-    epoch before its first sample is read."""
-    if num_hosts > 1:
-        raise NotImplementedError(
-            "multi-host shards are not ported yet; ROADMAP.md queues them")
+    epoch before its first sample is read.
+
+    With ``num_hosts > 1`` host ``host_id`` draws a disjoint covering shard
+    of the epoch's order, the permutation seeded by ``seed + epoch`` that
+    every host agrees on (the dataset order without ``shuffle``), as the
+    JAX package's loader does."""
+    check_shard(num_hosts, host_id)
     n = len(dataset)
     epoch = 0
     pool = ThreadPoolExecutor(max_workers=num_workers) if num_workers else None
@@ -47,8 +53,13 @@ def batch_iterator(dataset, batch_size: int, *, shuffle: bool = True,
         while epochs is None or epoch < epochs:
             if hasattr(dataset, "set_epoch"):
                 dataset.set_epoch(epoch)
-            order = (np.random.default_rng(seed + epoch).permutation(n)
-                     if shuffle else np.arange(n))
+            if num_hosts > 1:
+                order = shard_index_space(
+                    n, num_hosts, host_id,
+                    shuffle_seed=(seed + epoch) if shuffle else None)
+            else:
+                order = (np.random.default_rng(seed + epoch).permutation(n)
+                         if shuffle else np.arange(n))
             for start in range(0, len(order), batch_size):
                 idx = order[start:start + batch_size]
                 if len(idx) < batch_size and drop_last:

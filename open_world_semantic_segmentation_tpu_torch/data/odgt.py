@@ -30,6 +30,7 @@ import numpy as np
 from PIL import Image
 
 from . import native
+from ..parallel.mesh import check_shard, shard_index_space
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
@@ -99,6 +100,16 @@ def imresize(im: Image.Image, size, interp="bilinear") -> Image.Image:
     return im.resize(size, resample)
 
 
+def _host_shard(records, num_hosts: int, host_id: int, seed=None):
+    """The records of host ``host_id`` of ``num_hosts``, in its shard's
+    order; all of them, as they are, on one host."""
+    if num_hosts == 1:
+        return records
+    idx = shard_index_space(len(records), num_hosts, host_id,
+                            shuffle_seed=seed)
+    return [records[i] for i in idx]
+
+
 class TrainPipeline:
     """Infinite iterator of train batches with the reference's bucketing.
 
@@ -108,31 +119,34 @@ class TrainPipeline:
     ``np.random.default_rng(seed)`` draws in the same order, the same
     resampling (PIL, or the same native library). ``use_native=True`` (the
     default, as in the JAX package) raises where the native library cannot
-    be built; there is no quiet switch to PIL. One host only.
+    be built; there is no quiet switch to PIL.
+
+    With ``num_hosts > 1`` host ``host_id`` keeps its shard of the records
+    (``parallel/mesh.py shard_index_space``, shuffled by ``seed``, which
+    every host shares) and draws from ``default_rng(seed + host_id)``, as
+    the JAX package's pipeline does.
     """
 
     def __init__(self, root_dataset: str, odgt, *, batch_per_gpu: int = 2,
                  img_sizes=(300, 375, 450, 525, 600), img_max_size=1000,
                  padding_constant=8, segm_downsampling_rate=8,
                  random_flip=True, seed: int = 304, num_hosts: int = 1,
-                 use_native: bool = True):
-        if num_hosts != 1:
-            raise NotImplementedError(
-                "multi-host sharding is not ported yet (ROADMAP.md queues "
-                "it with parallel/)")
+                 host_id: int = 0, use_native: bool = True):
+        check_shard(num_hosts, host_id)
         self.native = None
         if use_native:
             self.native = native
             native.load()              # raises here, with the reason
         self.root = root_dataset
-        self.records = parse_odgt(odgt)
+        self.records = _host_shard(parse_odgt(odgt), num_hosts, host_id,
+                                   seed)
         self.batch_per_gpu = batch_per_gpu
         self.img_sizes = tuple(img_sizes)
         self.img_max_size = img_max_size
         self.padding_constant = padding_constant
         self.segm_down = segm_downsampling_rate
         self.random_flip = random_flip
-        self.rng = np.random.default_rng(seed)
+        self.rng = np.random.default_rng(seed + host_id)
         self._bucket = [[], []]
         self._cursor = 0
         self._order = list(range(len(self.records)))
@@ -230,16 +244,21 @@ class ValPipeline:
     PIL's filter, so scores deviate from the PIL path within resampling
     tolerance). With ``rec_dataset`` the image is read from that tree,
     matched by its last folder and file name, and resized to the label's
-    size (nearest), the reference's reconstructed inputs.
+    size (nearest), the reference's reconstructed inputs. With
+    ``num_hosts > 1`` host ``host_id`` keeps its contiguous shard of the
+    records, unshuffled (``parallel/mesh.py shard_index_space``).
     """
 
     def __init__(self, root_dataset: str, odgt, *,
                  img_sizes=(300, 375, 450, 525, 600), img_max_size=1000,
                  padding_constant=8, max_sample: int = -1,
                  rec_dataset: Optional[str] = None,
-                 device_pyramid: bool = False):
+                 device_pyramid: bool = False, num_hosts: int = 1,
+                 host_id: int = 0):
+        check_shard(num_hosts, host_id)
         self.root = root_dataset
-        self.records = parse_odgt(odgt, max_sample)
+        self.records = _host_shard(parse_odgt(odgt, max_sample), num_hosts,
+                                   host_id)
         self.img_sizes = tuple(img_sizes)
         self.img_max_size = img_max_size
         self.padding_constant = padding_constant

@@ -7,8 +7,10 @@ device, in the same pass as the forward.
 - Extraction: for a support image whose ground truth holds the novel class
   over more than ``min_area`` of the image, the prototype is the mean
   embedding over those pixels. The sums are taken in float32 whatever the
-  features' dtype. The data-parallel sum across devices waits for the
-  multi-GPU work in ``ROADMAP.md``.
+  features' dtype. Over data-parallel ranks (``group``) the masked sum, the
+  novel pixel count and the pixel count are summed across the ranks in one
+  all-reduce before the division and the ``min_area`` test, as the JAX
+  package's ``psum`` does.
 - Inference: ``dis = -||f_p - proto||^2`` per pixel; a pixel takes the novel
   id where ``dis > threshold`` (-1.5) and ``dis > maxlogit`` (the base
   head's best distance logit).
@@ -23,24 +25,34 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.distance import prototype_distance
 
 
 def extract_prototype(features: torch.Tensor, labels: torch.Tensor,
-                      novel_class: int, min_area: float = 0.05):
+                      novel_class: int, min_area: float = 0.05, group=None):
     """Masked-mean embedding of the novel-class pixels.
 
     features: (B, H, W, C); labels: (B, H, W). Returns (proto (C,) float32,
     valid), ``valid`` a 0-d bool tensor, False where the class covers no
     more than ``min_area`` of the batch (the reference skips such support
-    images). Nothing is read back to the host.
+    images). Nothing is read back to the host. With ``group`` the batch is
+    the union of every rank's (each rank gets the same result).
     """
     mask = (labels == novel_class).float()
     total = mask.sum()
     summed = (features.float() * mask[..., None]).sum((0, 1, 2))
+    if group is None:
+        count = float(labels.numel())
+    else:
+        sums = torch.cat([summed, total[None],
+                          torch.full((1,), float(labels.numel()),
+                                     device=summed.device)])
+        dist.all_reduce(sums, group=group)
+        summed, total, count = sums[:-2], sums[-2], sums[-1]
     proto = summed / total.clamp(min=1.0)
-    valid = total / float(labels.numel()) > min_area
+    valid = total / count > min_area
     return proto, valid
 
 

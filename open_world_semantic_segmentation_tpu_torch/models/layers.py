@@ -26,7 +26,9 @@ to the int8 conv, as in the JAX package.
 Batch norm in training mode follows the JAX package (flax ``BatchNorm``),
 not ``torch.nn.BatchNorm2d``, where the two differ: the running variance
 takes in the biased batch variance (torch takes the unbiased one, n/(n-1)
-times larger).
+times larger). Across ranks (``group``, which ``train/state.py TrainStep``
+sets) it normalises with the statistics of the global batch, as the JAX
+package's BN does under pjit.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -56,13 +59,24 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     ``update_stats = False`` (the trainer's ``fix_bn``) normalises with the
     batch statistics and leaves the running ones as they were.
+
+    ``group``: a process group of more than one rank makes the batch the
+    global one (``_GlobalBatchNorm``): mean and biased variance over every
+    rank's samples, the running statistics updated with them (n the global
+    count), the gradient through the same sums. In eval mode no collective
+    runs: the running statistics normalise, as in one process.
+    ``nn.SyncBatchNorm`` would not do: it refuses CPU tensors and folds the
+    unbiased variance into the running one.
     """
 
     update_stats = True
+    group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.group is not None:
+            return self._global_forward(x)
         if not self.update_stats:
             return F.batch_norm(x, None, None, self.weight, self.bias, True,
                                 0.0, self.eps)
@@ -76,6 +90,79 @@ class BatchNorm2d(nn.BatchNorm2d):
         # training backward does not read it) and would refuse a new version
         self.running_var.data.mul_((n - 1) / n).add_(old, alpha=(1 - m) / n)
         return y
+
+    def _global_forward(self, x):
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                              self.eps, self.group)
+        if self.update_stats and self.track_running_stats:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                m = (self.momentum if self.momentum is not None
+                     else 1.0 / float(self.num_batches_tracked))
+                self.running_mean.mul_(1 - m).add_(
+                    mean.to(self.running_mean.dtype), alpha=m)
+                self.running_var.mul_(1 - m).add_(
+                    var.to(self.running_var.dtype), alpha=m)
+        return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Batch norm over the samples of every rank of ``group``: (y, mean,
+    biased variance). The sums are taken in at least float32 (under bf16
+    autocast too), each as one all-reduce; y has x's dtype. The backward
+    is batch norm's, its two per-channel sums all-reduced: of ``g`` and of
+    ``g * x_hat``. Only x and the statistics are kept for it, as the native
+    batch norm keeps them. The weight and bias gradients are this rank's
+    sums; the train step averages them over the ranks with the rest."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        acc = torch.promote_types(x.dtype, torch.float32)
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, c] + [1] * (x.dim() - 2)
+        xf = x.to(acc)
+        sums = torch.cat([xf.sum(dims),
+                          torch.full((1,), x.numel() // c, dtype=acc,
+                                     device=x.device)])
+        dist.all_reduce(sums, group=group)
+        n = sums[c]
+        mean = sums[:c] / n
+        centred = xf - mean.view(shape)
+        var = (centred * centred).sum(dims)
+        dist.all_reduce(var, group=group)
+        var = var / n
+        invstd = torch.rsqrt(var + eps)
+        y = centred * invstd.view(shape)
+        if weight is not None:
+            y = y * weight.to(acc).view(shape) + bias.to(acc).view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, grad, _grad_mean, _grad_var):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        acc = mean.dtype
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, c] + [1] * (x.dim() - 2)
+        x_hat = (x.to(acc) - mean.view(shape)) * invstd.view(shape)
+        g = grad.to(acc)
+        sum_g = g.sum(dims)
+        sum_gx = (g * x_hat).sum(dims)
+        sums = torch.cat([sum_g, sum_gx])
+        dist.all_reduce(sums, group=ctx.group)
+        scale = invstd if weight is None else invstd * weight.to(acc)
+        grad_x = ((g - (sums[:c] / n).view(shape)
+                   - x_hat * (sums[c:] / n).view(shape))
+                  * scale.view(shape))
+        grad_w = grad_b = None
+        if weight is not None:
+            grad_w = sum_gx.to(weight.dtype)
+            grad_b = sum_g.to(weight.dtype)
+        return grad_x.to(x.dtype), grad_w, grad_b, None, None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,6 +31,12 @@
   its ``model_state``. The reference's ``scheduler_state`` is not written:
   the port's schedule is a function of the step count (``cur_itrs``). The
   JAX trainer writes ``latest.pkl`` / ``best.pkl`` instead.
+- ``save_checkpoint_distributed`` / ``load_checkpoint_distributed``: the
+  JAX package's ``save_checkpoint_orbax`` / ``load_checkpoint_orbax``
+  (sharded, multi-host) on ``torch.distributed.checkpoint``: a directory
+  that every rank of the default process group writes together (a tensor
+  held alike by every rank is written once) and reads back, or one
+  process alone where there is no group.
 """
 
 from __future__ import annotations
@@ -126,3 +132,24 @@ def load_deeplab_checkpoint(path: str, model, optimizer) -> Tuple[int,
     model.load_state_dict(ckpt["model_state"])
     load_optimizer_state(optimizer, ckpt["optimizer_state"])
     return int(ckpt["cur_itrs"]), float(ckpt["best_score"])
+
+
+def save_checkpoint_distributed(path: str, state):
+    """Write ``state`` (a nested dict of tensors, such as a model's and an
+    optimizer's state dicts, and plain values) into the directory
+    ``path`` with ``torch.distributed.checkpoint``. Under a process group
+    every rank calls it with its own ``state``; one process calls it
+    alone."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.save(state, checkpoint_id=os.path.abspath(path))
+
+
+def load_checkpoint_distributed(path: str, target):
+    """Read the directory ``path`` into ``target``, a nested dict of the
+    saved structure: its tensors are filled in place, on their devices and
+    in their dtypes, its plain values replaced. Returns ``target``."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.load(target, checkpoint_id=os.path.abspath(path))
+    return target

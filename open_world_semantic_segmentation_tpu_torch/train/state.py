@@ -27,6 +27,24 @@ in at least float32.
 
 Dropout draws from PyTorch's default generator of the model's device
 (``torch.manual_seed``); nn.Dropout takes no generator of its own.
+
+Data parallel (``group``, the default process group when
+``torch.distributed`` is initialised): each rank runs the step on its
+share of the global batch. Batch norm normalises with the global batch's
+statistics, the loss is the global batch's (``train/losses.py``), and
+after the backward one flat all-reduce averages the gradients
+(``parallel/mesh.py average_gradients``), so every rank takes the update
+one process takes on the global batch and ends the step with the same
+bits. The guard then reads the reduced gradients and the
+global loss, and reaches the same verdict on every rank. An explicit
+all-reduce rather than ``DistributedDataParallel``: the step gives every
+trained parameter a gradient whether the loss reaches it or not, which
+DDP's search for unused parameters would trip over; the guard must see
+the reduced gradients before the update; and the module needs no wrapper
+(its state-dict keys stay the reference's). Each rank draws dropout masks
+from its own generator (the CLIs seed it with the seed plus the rank), so
+a multi-rank step's masks differ from one process's, and from the JAX
+package's, by design.
 """
 
 from __future__ import annotations
@@ -41,6 +59,7 @@ from .losses import (cross_entropy, deeplab_cross_entropy,
                      dml_segmentation_loss, focal_loss, pixel_acc)
 from .optim import set_learning_rates
 from ..models.layers import BatchNorm2d
+from ..parallel.mesh import average_gradients, data_group, world_size
 
 _AUTOCAST = (torch.bfloat16, torch.float16)
 
@@ -51,15 +70,18 @@ class TrainStep:
     ``fix_bn``: normalise with batch statistics but keep the running ones.
     ``guard``: skip a step whose loss or gradients are not finite
     (``train/guard.py``). ``dtype``: the autocast dtype (bf16 or fp16), or
-    the parameters' own dtype (float32, float64) to run as it is."""
+    the parameters' own dtype (float32, float64) to run as it is.
+    ``group``: the data-parallel ranks (the default group when
+    ``torch.distributed`` is initialised, else one process)."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  *, guard: bool = False, fix_bn: bool = False,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, group=None):
         self.model = model
         self.optimizer = optimizer
         self.guard = guard
         self.dtype = dtype
+        self.group = data_group() if group is None else group
         self.step = 0
         self._saved = None
         self._params = [p for p in model.parameters() if p.requires_grad]
@@ -69,9 +91,11 @@ class TrainStep:
         # still apply
         for p in self._params:
             p.grad = torch.zeros_like(p)
+        bn_group = self.group if world_size(self.group) > 1 else None
         for m in model.modules():
             if isinstance(m, BatchNorm2d):
                 m.update_stats = not fix_bn
+                m.group = bn_group
 
     def autocast(self, device: torch.device):
         return torch.autocast(device.type, dtype=self.dtype,
@@ -96,6 +120,8 @@ class TrainStep:
         loss, metrics = self.loss(batch)
         self.optimizer.zero_grad(set_to_none=False)
         loss.backward()
+        if self.group is not None:
+            average_gradients(self._params, self.group)
         metrics = {"loss": loss.detach(), **metrics}
         if self.guard:
             finite = (all_finite([p.grad for p in self._params])
@@ -123,9 +149,9 @@ class AnomalyTrainStep(TrainStep):
                  deep_sup_scale: Optional[float] = None,
                  ignore_index: int = -1, guard: bool = False,
                  fix_bn: bool = False, log_softmax_scores: bool = False,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, group=None):
         super().__init__(model, optimizer, guard=guard, fix_bn=fix_bn,
-                         dtype=dtype)
+                         dtype=dtype, group=group)
         self.alpha = alpha
         self.beta = beta
         self.deep_sup_scale = deep_sup_scale
@@ -141,10 +167,11 @@ class AnomalyTrainStep(TrainStep):
             logits = torch.log_softmax(logits, dim=-1)
         loss, (_, _, _, acc) = dml_segmentation_loss(
             logits, label, alpha=self.alpha, beta=self.beta,
-            ignore_index=self.ignore_index)
+            ignore_index=self.ignore_index, group=self.group)
         if self.deep_sup_scale is not None and "deepsup" in out:
+            n = logits.shape[0] * world_size(self.group)
             loss = loss + self.deep_sup_scale * cross_entropy(
-                out["deepsup"], label, self.ignore_index) / logits.shape[0]
+                out["deepsup"], label, self.ignore_index, self.group) / n
         return loss, {"acc": acc}
 
 
@@ -161,11 +188,11 @@ class DeepLabTrainStep(TrainStep):
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  *, loss_kind: str = "cross_entropy",
                  ignore_index: int = 255, guard: bool = False,
-                 fix_bn: bool = False, dtype=torch.bfloat16):
+                 fix_bn: bool = False, dtype=torch.bfloat16, group=None):
         if loss_kind not in LOSS_KINDS:
             raise ValueError(f"loss_kind {loss_kind!r}: one of {LOSS_KINDS}")
         super().__init__(model, optimizer, guard=guard, fix_bn=fix_bn,
-                         dtype=dtype)
+                         dtype=dtype, group=group)
         self.loss_kind = loss_kind
         self.ignore_index = ignore_index
 
@@ -177,10 +204,12 @@ class DeepLabTrainStep(TrainStep):
         if isinstance(logits, (list, tuple)):
             logits = logits[-1]
         if self.loss_kind == "focal_loss":
-            loss = focal_loss(logits, label, ignore_index=self.ignore_index)
+            loss = focal_loss(logits, label, ignore_index=self.ignore_index,
+                              group=self.group)
         else:
             loss = deeplab_cross_entropy(logits, label,
-                                         ignore_index=self.ignore_index)
+                                         ignore_index=self.ignore_index,
+                                         group=self.group)
         acc = pixel_acc(logits, torch.where(label == self.ignore_index, -1,
-                                            label))
+                                            label), self.group)
         return loss, {"acc": acc}

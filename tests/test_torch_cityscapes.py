@@ -97,8 +97,20 @@ def test_batch_iterator_order_matches_jax(shuffle, drop_last, workers):
 
 
 def test_batch_iterator_refuses_multi_host():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        next(loader.batch_iterator(_Range(), 2, num_hosts=2))
+    """Multi-host shards are ported now (each host's batches are the JAX
+    package's, as ``tests/test_torch_parallel.py`` holds at 4 hosts); what
+    the loader refuses is a host id outside ``range(num_hosts)``."""
+    for num_hosts, host_id in ((2, 2), (2, -1), (0, 0)):
+        with pytest.raises(ValueError, match="host_id"):
+            next(loader.batch_iterator(_Range(), 2, num_hosts=num_hosts,
+                                       host_id=host_id))
+    kw = dict(num_hosts=2, host_id=1, epochs=2, seed=3, num_workers=0)
+    got = list(loader.batch_iterator(_Range(), 2, **kw))
+    want = list(jloader.batch_iterator(_Range(), 2, **kw))
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
 
 
 def _seg_batch(seed, n_classes, shape=(2, 23, 31)):

@@ -59,7 +59,7 @@ for name in ("cli.train_embedding", "cli.train", "data.native",
              "cli.make_odgt", "cli.pick_images", "core.export",
              "models.resnext", "models.hrnet", "models.mobilenet",
              "tools", "tools.golden_run", "tools.quant_drift", "ops.quant",
-             "data.voc"):
+             "data.voc", "parallel", "parallel.mesh"):
     assert port.__name__ + "." + name in names, name
 """
 
